@@ -10,15 +10,23 @@ raising on failure:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: compile the CUDA kernels from vm_asr_tpu_torch/csrc with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the flagship 48 kHz forward gives it (batch 1; the fused scan
-   also at batch 8, the largest segment bucket), with CUDA-event times
-   beside the memory bound.
+   every shape the flagship 48 kHz forward (batch 1; the fused scan also at
+   batch 8, the largest segment bucket) and train step (batch 4) give it:
+   the fused forward and backward, the recurrence forward and reverse, with
+   CUDA-event times beside the memory bound.
 4. model: one flagship segment in fp32 through the generator with the
    kernels, and again with the scan routed to the plain versions.
-5. serve: Inferencer.infer_file on three synthetic 16 kHz clips (tag
+5. train gradient: the fp32 flagship generator loss (STFT + MPD, batch 1)
+   differentiated with the kernels, with the plain scan, and with the plain
+   scan in fp64 as the witness both fp32 routes are held to.
+6. serve: Inferencer.infer_file on three synthetic 16 kHz clips (tag
    16000_48000) with the full flagship generator (dims 16, depths 2-2-2-2,
    n_fft 1024, bf16 compute, seeded random weights), with launch counts.
-6. the kernels line, the card line, and the result line.
+7. profile: one batch-1 forward under torch.profiler.
+8. train: the flagship GAN train step (batch 4, bf16, MPD, AdamW), 3
+   warm-up and 10 timed steps on synthetic speech, with launch counts, then
+   one profiled step by kernel and one by op and input shapes.
+9. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -39,17 +47,29 @@ import numpy as np
 import torch
 
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
-from vm_asr_tpu_torch.dsp import num_segments, save_wav
-from vm_asr_tpu_torch.models import SS2D, get_generator, set_scan_impl
+from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
+from vm_asr_tpu_torch.models import SS2D, get_discriminators, get_generator, set_scan_impl
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
 from vm_asr_tpu_torch.ops import (
     linear_recurrence,
     linear_recurrence_plain,
+    linear_recurrence_reverse,
+    linear_recurrence_reverse_plain,
     selective_scan_fused,
+    selective_scan_fused_bwd,
+    selective_scan_fused_bwd_plain,
+    selective_scan_fused_fwd,
     selective_scan_fused_plain,
 )
 from vm_asr_tpu_torch.ops.build import build
-from vm_asr_tpu_torch.train import Inferencer, segment_bucket_counts
+from vm_asr_tpu_torch.train import (
+    DiscState,
+    GenState,
+    Inferencer,
+    make_optimizer,
+    make_train_step,
+    segment_bucket_counts,
+)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
@@ -61,8 +81,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # fp32 operations per element: fused scan ~15 (softplus 6, exp, 2 muls for
 # dt·A and dt·u·B, the recurrence's fma, y = C·h + D·u 3, decay product 1);
-# linear recurrence 2 (one fma).
-FUSED_OPS, LR_OPS = 15, 2
+# its backward ~30 (the forward's 11 to rebuild h, the adjoint fma, da, du 3,
+# ddts 5 with sigmoid 3, dB/dC terms 3, dA/dbias/dD sums 3, a·g 1); linear
+# recurrence 2 (one fma), in reverse 3 (add, da, a·dh).
+FUSED_OPS, FUSED_BWD_OPS, LR_OPS, LR_REV_OPS = 15, 30, 2, 3
 
 # Scan calls of one flagship forward (two streams; 512×512 image, embed to
 # 128² × 16 channels, stages at 128², 64², 32², 16² with d_inner 32..256 so
@@ -71,6 +93,7 @@ FUSED_OPS, LR_OPS = 15, 2
 FUSED_CALLS = {(16384, 128): 6, (4096, 256): 8, (1024, 512): 8, (256, 1024): 8}
 LR_CALLS = {(65536, 64): 2, (262144, 8): 2}
 K = 4
+TRAIN_BATCH = 4  # DATA.BATCH_SIZE of the flagship config
 
 # Kernel vs plain tolerances, elementwise |kernel - plain| <= atol + rtol·|plain|:
 # fp32: the two scans associate the recurrence differently (chunked carry vs
@@ -84,6 +107,32 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 # log-magnitude exp2 (8.0e-7 measured on an H100); a wrong kernel moves the
 # output by O(1).
 MODEL_REL_TOL = 1e-5
+# Backward kernels vs plain backward, elementwise. fp32: the JAX package's bar
+# for the scan gradients (tests/test_fused_scan.py:50-51); the adjoint scans
+# associate differently (the recurrence's reverse dh sums up to ~1/(1 - a) ≈
+# 1000 terms, so its rounding exceeds the forward's 1e-4 bar), dB/dC are
+# summed by atomics in an order that changes from run to run, and
+# dA/dbias/dD are sums over B·L (up to 65 536 terms) taken in another order. bf16 du, ddts, dB, dC: both round one fp32
+# result to bf16, one ulp ≤ 2^-7 of the value apart; dA/dbias/dD stay fp32.
+BWD_FP32_TOL = dict(rtol=1e-3, atol=1e-3)
+BWD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+# Generator gradient, fp32 (TF32 off), per tensor, against a witness that
+# runs the plain scan in fp64 (the rest of the model fp32), for the kernels
+# and for the plain fp32 scan alike: max |diff| <= GRAD_REL · max |fp64| +
+# GRAD_FLOOR · (largest |fp64| over all tensors). Where a parameter's
+# gradient sums 16 384 positions that cancel (the first stages' LayerNorm
+# and MLP weights), fp32 rounding in the scans moves it by up to 2.3e-3 of
+# its scale for the plain fp32 scan and 7.2e-4 for the kernels (measured on
+# an H100, NVIDIA H100 80GB HBM3, 700 W): the kernels are the nearer of the
+# two, so the kernels-vs-plain gap of ~2e-3 is the plain scan's rounding.
+# GRAD_REL = 3e-3 holds the plain fp32 scan with 30 % room and the kernels
+# with 4x; a kernel fault at a chunk boundary moves a gradient by O(1) of
+# its scale. The floor, fp32's epsilon of the largest gradient, covers
+# tensors whose gradient cancels to rounding noise (the narrow head's
+# dt_projs and A_logs sit 1e-6..1e-14 below the largest). A scan that
+# dropped a gradient leaves zeros: a 100 % difference, which fails this bar
+# and the nonzero check on every SS2D parameter.
+GRAD_REL, GRAD_FLOOR = 3e-3, 1.2e-7
 
 
 def fmt_ms(ms) -> str:
@@ -124,7 +173,10 @@ def cuda_ms(fn, reps: int = 5, per: int = 20) -> float:
 
 def device_kernels(fn, n: int = 1):
     """The device events (kernels, copies) of ``n`` calls of ``fn`` under
-    torch.profiler, as (name, start_us, end_us), after a warm-up call."""
+    torch.profiler, as (name, start_us, end_us), after a warm-up call. The
+    device-side spans of annotated regions (``Optimizer.step#AdamW.step``)
+    are left out, as torch's own tables leave them out: they cover the gaps
+    between their kernels."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -133,7 +185,24 @@ def device_kernels(fn, n: int = 1):
             fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def top_ops(fn, top: int = 8):
+    """The aten ops of one call of ``fn`` (after a warm-up call) with the most
+    device time of their own, grouped by input shapes, as (op, shapes, ms)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, str(e.input_shapes), e.self_device_time_total / 1e3)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    return sorted(rows, key=lambda r: -r[2])[:top]
 
 
 def busy_us(events) -> float:
@@ -165,6 +234,19 @@ def init_ranges(kd: int, gen: torch.Generator):
     return (-torch.ones(kd).cuda(), bias.cuda(), torch.ones(kd).cuda())
 
 
+COUNTED = (selective_scan_fused, selective_scan_fused_bwd, linear_recurrence,
+           linear_recurrence_reverse)
+
+
+def zero_counts():
+    for fn in COUNTED:
+        fn.launches = 0
+
+
+def read_counts():
+    return {fn.__name__: fn.launches for fn in COUNTED}
+
+
 def check_close(name, got, ref, tol):
     ok = torch.allclose(got.float(), ref.float(), **tol)
     err = (got.float() - ref.float()).abs().max().item()
@@ -173,14 +255,20 @@ def check_close(name, got, ref, tol):
     return err
 
 
-def check_fused(batch, l, kd, dtype, gen):
+def fused_inputs(batch, l, kd, dtype, gen):
     g = torch.Generator(device="cuda").manual_seed(batch * 1_000_003 + l * 1009 + kd)
     a, bias, dsk = init_ranges(kd, gen)
     u = torch.randn(batch, l, kd, device="cuda", generator=g).to(dtype)
     dts = (0.5 * torch.randn(batch, l, kd, device="cuda", generator=g)).to(dtype)
     bs = torch.randn(batch, l, K, device="cuda", generator=g).to(dtype)
     cs = torch.randn(batch, l, K, device="cuda", generator=g).to(dtype)
-    args = (u, dts, bs, cs, a, bias, dsk, K)
+    dy = torch.randn(batch, l, kd, device="cuda", generator=g).to(dtype)
+    return (u, dts, bs, cs, a, bias, dsk, K), dy
+
+
+def check_fused(batch, l, kd, dtype, gen):
+    args, _ = fused_inputs(batch, l, kd, dtype, gen)
+    u = args[0]
     y = selective_scan_fused(*args)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
@@ -193,6 +281,59 @@ def check_fused(batch, l, kd, dtype, gen):
                 ms=cuda_ms(lambda: selective_scan_fused(*args)),
                 device_ms=device_ms(lambda: selective_scan_fused(*args)),
                 plain_ms=cuda_ms(lambda: selective_scan_fused_plain(*args), reps=3, per=3),
+                bound_ms=bms, bound_by=by)
+
+
+def check_fused_bwd(batch, l, kd, dtype, gen):
+    """The backward kernel's seven outputs against the plain backward, on the
+    forward kernel's H0 and chunk."""
+    (u, dts, bs, cs, a, bias, dsk, k), dy = fused_inputs(batch, l, kd, dtype, gen)
+    _, h0, chunk = selective_scan_fused_fwd(u, dts, bs, cs, a, bias, dsk, k)
+    kernel = lambda: selective_scan_fused_bwd(u, dts, bs, cs, dy, a, bias, dsk, h0, chunk, k)  # noqa: E731
+    plain = lambda: selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a, bias, dsk, k)  # noqa: E731
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (name, g_, r_) in enumerate(zip(("du", "ddts", "dbs", "dcs", "dA", "dbias", "dD"),
+                                           got, ref)):
+        if g_.dtype != r_.dtype or g_.shape != r_.shape:
+            raise AssertionError(f"fused bwd {name}: {g_.dtype} {tuple(g_.shape)} vs plain "
+                                 f"{r_.dtype} {tuple(r_.shape)}")
+        tol = BWD_BF16_TOL if (dtype == torch.bfloat16 and i < 4) else BWD_FP32_TOL
+        err = max(err, check_close(f"fused bwd {name} {(batch, l, kd)} {dtype}", g_, r_, tol))
+    size = u.element_size()
+    n_chunks = h0.shape[1]
+    nbytes = (5 * batch * l * kd + 2 * batch * l * K) * size + 2 * batch * l * K * 4 \
+        + batch * n_chunks * kd * 4 + 6 * kd * 4
+    bms, by = bound_ms(nbytes, FUSED_BWD_OPS * batch * l * kd)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_FP32_TOL
+    return dict(kernel="selective_scan_fused_bwd", shape=[batch, l, kd], dtype=str(dtype),
+                chunk=chunk, max_abs_err=err, tol=tol, bytes=nbytes,
+                ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                plain_ms=cuda_ms(plain, reps=3, per=3), bound_ms=bms, bound_by=by)
+
+
+def check_lr_reverse(rows, l, d, gen):
+    g = torch.Generator(device="cuda").manual_seed(rows * 1_000_033 + l * 1013 + d)
+    _, bias, _ = init_ranges(d, gen)
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn(rows, l, d, device="cuda", generator=g) + bias)
+    a = torch.exp(-dt)
+    h = linear_recurrence_plain(a, dt * torch.randn(rows, l, d, device="cuda", generator=g))
+    grad = torch.randn(rows, l, d, device="cuda", generator=g)
+    got = linear_recurrence_reverse(a, h, grad)
+    ref = linear_recurrence_reverse_plain(a, h, grad)
+    torch.cuda.synchronize()
+    err = max(check_close(f"linear_recurrence reverse {name} {(rows, l, d)}", x, y, BWD_FP32_TOL)
+              for name, x, y in zip(("da", "db"), got, ref))
+    nbytes = 5 * rows * l * d * 4
+    bms, by = bound_ms(nbytes, LR_REV_OPS * rows * l * d)
+    return dict(kernel="linear_recurrence_reverse", shape=[rows, l, d], dtype="torch.float32",
+                max_abs_err=err, tol=BWD_FP32_TOL, bytes=nbytes,
+                ms=cuda_ms(lambda: linear_recurrence_reverse(a, h, grad)),
+                device_ms=device_ms(lambda: linear_recurrence_reverse(a, h, grad)),
+                plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
+                                 reps=3, per=3),
                 bound_ms=bms, bound_by=by)
 
 
@@ -217,8 +358,8 @@ def check_lr(rows, l, d, gen):
                 bound_ms=bms, bound_by=by)
 
 
-def flagship_config(amp: bool):
-    opts = ["TRAIN.ADVERSARIAL.ENABLE", "False", "AMP_ENABLE", str(amp),
+def flagship_config(amp: bool, gan: bool = False):
+    opts = ["TRAIN.ADVERSARIAL.ENABLE", str(gan), "AMP_ENABLE", str(amp),
             "OUTPUT", str(OUT / "logs"), "TAG", "16000_48000",
             "INFERENCE.RESULTS_DIR", str(OUT / "results")]
     have_yaml = importlib.util.find_spec("yaml") is not None
@@ -231,16 +372,36 @@ def flagship_config(amp: bool):
         c.MODEL.NAME = "DualStreamInteractiveMambaUNet"
         c.MODEL.VSSM.DIMS = 16
         c.DATA.TARGET_SR = 48000
+        c.DATA.BATCH_SIZE = 4
         c.TRAIN.LOW_FREQ_REPLACEMENT = True
+        c.TRAIN.ADVERSARIAL.DISCRIMINATORS = ["mpd"]
         c.merge_from_list(opts)
         update_config(c, argparse.Namespace())
     print(f"config: {CONFIG.name} {'via PyYAML' if have_yaml else 'as defaults + overrides'}")
-    v = c.MODEL.VSSM
+    v, adv = c.MODEL.VSSM, c.TRAIN.ADVERSARIAL
     want = (c.MODEL.NAME, v.DIMS, list(v.DEPTHS), v.SSM_D_STATE, c.DATA.TARGET_SR,
-            c.DATA.STFT.N_FFT, c.DATA.STFT.HOP_LENGTH, c.DTYPE.COMPUTE)
+            c.DATA.STFT.N_FFT, c.DATA.STFT.HOP_LENGTH, c.DTYPE.COMPUTE, c.DATA.BATCH_SIZE,
+            v.DROP_PATH_RATE, list(adv.DISCRIMINATORS), list(adv.MPD_PERIODS), adv.MPD_HIDDEN,
+            adv.FEATURE_LOSS_LAMBDA, adv.GAN_LOSS_TYPE, list(c.TRAIN.LOSSES.GEN),
+            c.TRAIN.OPTIMIZER.NAME, c.TRAIN.LR_SCHEDULER.NAME)
     assert want == ("DualStreamInteractiveMambaUNet", 16, [2, 2, 2, 2], 1, 48000,
-                    1024, 240, "bfloat16"), want
+                    1024, 240, "bfloat16", TRAIN_BATCH, 0.1, ["mpd"], [2, 3, 5, 7, 11], 32,
+                    100, "lsgan", ["multi_resolution_stft"], "adamw", "cosine"), want
     return c
+
+
+def train_batch(cfg, seeds, device="cuda"):
+    """A batch of flagship segments: the target is synthetic 48 kHz speech,
+    the input the same resampled to 16 kHz and back (the band above 8 kHz
+    gone), and highcut the bin of 8 kHz, as the 16 kHz → 48 kHz task has."""
+    sr = cfg.DATA.TARGET_SR
+    seg = int(cfg.DATA.SEGMENT * sr)
+    y = np.stack([speech_like(seg / sr, sr, seed=s)[:seg] for s in seeds])
+    x = resample_audio(resample_audio(y, sr, 16000), 16000, sr)[:, :seg]
+    hf = int((1 + cfg.DATA.STFT.N_FFT // 2) * 16000 / sr)
+    return {"wave_input": torch.from_numpy(np.ascontiguousarray(x[:, None])).to(device),
+            "wave_target": torch.from_numpy(y[:, None]).to(device),
+            "highcut": torch.full((len(seeds),), hf, dtype=torch.int64, device=device)}
 
 
 def speech_like(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -278,12 +439,27 @@ def main() -> int:
     t0 = phase("kernels vs plain, every main-path shape")
     gen = torch.Generator().manual_seed(0)
     checks = []
-    for batch in (1, 8):
+    for batch in (1, TRAIN_BATCH, 8):
         for (l, kd) in FUSED_CALLS:
             for dtype in (torch.bfloat16, torch.float32):
                 checks.append(check_fused(batch, l, kd, dtype, gen))
+    for (l, kd) in FUSED_CALLS:
+        for dtype in (torch.bfloat16, torch.float32):
+            checks.append(check_fused_bwd(TRAIN_BATCH, l, kd, dtype, gen))
+    # Off the main path, for the chunk boundaries: L no multiple of the chunk
+    # (16, 32) over many chunks, and chunks of 2 and 4 sub-blocks (32, 64).
+    for shape in ((2, 1000, 128), (1, 5000, 1024), (8, 16384, 128)):
+        checks.append(check_fused_bwd(*shape, torch.float32, gen))
+    # D = 48, no multiple of a warp: the first stage of the dims-24 config
+    # (configs/vm_asr_48k_16k_MPD_VSSM24.yaml) at batch 4, and a ragged L.
+    for dtype in (torch.bfloat16, torch.float32):
+        checks.append(check_fused_bwd(TRAIN_BATCH, 16384, 192, dtype, gen))
+    checks.append(check_fused_bwd(2, 1000, 192, torch.float32, gen))
+    for rows in (1, TRAIN_BATCH):
+        for (l, d) in LR_CALLS:
+            checks.append(check_lr(rows, l, d, gen))
     for (l, d) in LR_CALLS:
-        checks.append(check_lr(1, l, d, gen))
+        checks.append(check_lr_reverse(TRAIN_BATCH, l, d, gen))
     for c in checks:
         print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]}: max|err| "
               f"{c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms "
@@ -327,6 +503,78 @@ def main() -> int:
     del model, y_kernel, y_plain
     print(f"model checked in {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("train gradient: fp32 flagship generator loss, kernels and plain scan vs "
+               "the plain scan in fp64")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = flagship_config(amp=False, gan=True).defrost()
+    # DropPath off: at batch 1 a dropped block legitimately has zero gradient,
+    # which would hide a scan that drops it.
+    cfg32.MODEL.VSSM.DROP_PATH_RATE = 0.0
+    cfg32.freeze()
+    model = get_generator(cfg32, "cuda")
+    step = make_train_step(cfg32, model, get_discriminators(cfg32, "cuda"))
+    batch = train_batch(cfg32, seeds=(20,))
+    named = list(model.named_parameters())
+    grads, totals, counts = {}, {}, {}
+    for impl in ("kernel", "plain", "kernel again", "plain64"):
+        set_scan_impl(model, impl.split()[0])
+        zero_counts()
+        total, _, _ = step.gen_loss_fn(batch["wave_input"], batch["wave_target"],
+                                       batch["highcut"], torch.Generator(device="cuda"))
+        grads[impl] = torch.autograd.grad(total, [p for _, p in named], allow_unused=True,
+                                          materialize_grads=True)
+        totals[impl] = total.item()
+        counts[impl] = read_counts()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    witness = grads["plain64"]
+    top = max(g.abs().max().item() for g in witness)
+
+    def ratios(a, b):
+        """Per tensor: max|a - b| / bar, max|a - b| / max|b|."""
+        return [(((x - y).abs().max() / (GRAD_REL * y.abs().max() + GRAD_FLOOR * top)).item(),
+                 ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item())
+                for x, y in zip(a, b)]
+
+    def worst_ratio(a, b):
+        r = ratios(a, b)
+        i = int(np.argmax([x for x, _ in r]))
+        return r[i][0], named[i][0], b[i].abs().max().item()
+
+    worst, worst_name, worst_scale = worst_ratio(grads["kernel"], witness)
+    plain_worst, plain_name, _ = worst_ratio(grads["plain"], witness)
+    apart, apart_name, _ = worst_ratio(grads["kernel"], grads["plain"])
+    noise, noise_name, _ = worst_ratio(grads["kernel again"], grads["kernel"])
+    kernel_r, plain_r = ratios(grads["kernel"], witness), ratios(grads["plain"], witness)
+    order = sorted(range(len(named)), key=lambda i: -max(kernel_r[i][0], plain_r[i][0]))
+    print("max|diff| / max|fp64| of the tensors furthest from the fp64 witness:")
+    for i in order[:6]:
+        print(f"  {named[i][0]}: kernels {kernel_r[i][1]:.3e}, plain fp32 {plain_r[i][1]:.3e} "
+              f"(of the bar {kernel_r[i][0]:.3e}, {plain_r[i][0]:.3e})")
+    zero = [name for (name, _), g in zip(named, grads["kernel"])
+            if ".op." in name and not g.abs().max().item() > 0]
+    want = dict(selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
+                linear_recurrence_reverse=4)
+    print(f"loss {totals['kernel']:.6f} (plain scan {totals['plain']:.6f}, fp64 "
+          f"{totals['plain64']:.6f}); {len(named)} tensors; bar {GRAD_REL} of each tensor's "
+          f"scale + {GRAD_FLOOR} of the largest ({top:.3e}); worst of the bar from the fp64 "
+          f"witness: kernels {worst:.3e} ({worst_name}, scale {worst_scale:.3e}), plain fp32 "
+          f"{plain_worst:.3e} ({plain_name}); kernels vs plain fp32 {apart:.3e} ({apart_name}); "
+          f"the kernels run twice {noise:.3e} ({noise_name}); zero SS2D gradients {zero}; "
+          f"kernel launches {counts['kernel']}; TF32 off")
+    if worst > 1 or plain_worst > 1 or zero or counts["kernel"] != want \
+            or any(counts["plain"].values()) or any(counts["plain64"].values()):
+        raise AssertionError("train gradient check failed")
+    report["train_grad_check"] = dict(
+        worst_ratio=worst, worst_tensor=worst_name, worst_scale=worst_scale,
+        plain_worst_ratio=plain_worst, plain_worst_tensor=plain_name,
+        kernel_vs_plain_ratio=apart, rerun_ratio=noise, rel=GRAD_REL, floor=GRAD_FLOOR,
+        top=top, furthest=[(named[i][0], kernel_r[i][1], plain_r[i][1]) for i in order[:6]],
+        loss_kernel=totals["kernel"], loss_plain=totals["plain"],
+        loss_fp64=totals["plain64"], launches=counts["kernel"])
+    del model, step, grads
+    print(f"gradients checked in {time.perf_counter() - t0:.1f} s")
+
     t0 = phase("serve: Inferencer.infer_file, full flagship generator, bf16")
     cfg = flagship_config(amp=True)
     model = get_generator(cfg, "cuda")
@@ -346,8 +594,7 @@ def main() -> int:
         return out, time.perf_counter() - t
 
     cold = {name: serve(name)[1] for name in clips}  # first calls: set-up
-    selective_scan_fused.launches = 0
-    linear_recurrence.launches = 0
+    zero_counts()
     requests, forwards = [], 0
     for name, sec in clips.items():
         f0, l0 = selective_scan_fused.launches, linear_recurrence.launches
@@ -367,9 +614,10 @@ def main() -> int:
             raise AssertionError(f"serve {name}: {r}")
         requests.append(r)
         forwards += n_fwd
-    launches = dict(selective_scan_fused=selective_scan_fused.launches,
-                    linear_recurrence=linear_recurrence.launches)
-    print(f"serve: {len(requests)} requests, {forwards} forwards, launches {launches}")
+    serve_launches = read_counts()
+    print(f"serve: {len(requests)} requests, {forwards} forwards, launches {serve_launches}")
+    if serve_launches["selective_scan_fused_bwd"] or serve_launches["linear_recurrence_reverse"]:
+        raise AssertionError("serving ran a backward kernel")
     report["serve"] = requests
     print(f"served in {time.perf_counter() - t0:.1f} s")
 
@@ -398,25 +646,139 @@ def main() -> int:
     report["profile"] = prof
     print(f"profiled in {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, route_src, replaces, calls, dtype):
-        rows = [c for c in checks if c["kernel"] == name]
-        at_b1 = {tuple(c["shape"][1:]): c for c in rows
-                 if c["shape"][0] == 1 and c["dtype"] == dtype}
-        per_fwd = lambda key: sum(n * at_b1[s][key] for s, n in calls.items())
-        return dict(name=name, route="cuda", source=route_src, replaces=replaces,
-                    launches=launches[name],
-                    max_abs_err=max(c["max_abs_err"] for c in rows),
-                    ms=per_fwd("ms"), plain_ms=per_fwd("plain_ms"),
-                    device_ms=None if any(at_b1[k]["device_ms"] is None for k in calls)
-                    else per_fwd("device_ms"),
-                    bound_ms=per_fwd("bound_ms"), bound_by="bytes", library_ms=None,
-                    check="pass", per="one batch-1 forward, summed over its calls")
+    t0 = phase("train: flagship GAN train step, batch 4, bf16")
+    cfg = flagship_config(amp=True, gan=True)
+    model = get_generator(cfg, "cuda")
+    discs = get_discriminators(cfg, "cuda")
+    steps_per_epoch = 1000
+    gen_state = GenState(model, make_optimizer(cfg, steps_per_epoch, model))
+    disc_states = {n: DiscState(d, make_optimizer(cfg, steps_per_epoch, d))
+                   for n, d in discs.items()}
+    step = make_train_step(cfg, model, discs)
+    batches = [train_batch(cfg, seeds=range(30 + TRAIN_BATCH * i, 30 + TRAIN_BATCH * (i + 1)))
+               for i in range(4)]
+    rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
+    before = {n: t.detach().clone() for n, t in
+              list(model.named_parameters()) + list(discs["mpd"].named_parameters())}
+    run = lambda i: step(gen_state, disc_states, batches[i % len(batches)], rng)  # noqa: E731
+    # The first step's generator gradient, from the same batch, weights and
+    # DropPath draws as the step itself, for the check of unchanged tensors.
+    rng_state = rng.get_state()
+    b0 = batches[0]
+    total, _, _ = step.gen_loss_fn(b0["wave_input"], b0["wave_target"], b0["highcut"], rng)
+    first_grad = {n: g.abs().max().item() for (n, _), g in zip(
+        model.named_parameters(), torch.autograd.grad(total, gen_state.params,
+                                                      allow_unused=True, materialize_grads=True))}
+    rng.set_state(rng_state)
+    del total
+    for i in range(3):  # warm-up: cuDNN autotuning, allocator
+        run(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 10
+    zero_counts()
+    marks, history = [], []
+    for i in range(n_steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        history.append(run(3 + i)[2])
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in marks]
+    median_ms = statistics.median(step_ms)
+    values = [{k: float(v) for k, v in m.items()} for m in history]
+    finite = all(np.isfinite(v) for m in values for v in m.values())
+    changed = [n for n, t in list(model.named_parameters()) +
+               list(discs["mpd"].named_parameters()) if not torch.equal(before[n], t)]
+    per_step = {k: v / n_steps for k, v in train_launches.items()}
+    want = dict(selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
+                linear_recurrence_reverse=4)
+    print(f"{n_steps} steps: median {median_ms:.2f} ms/step (CUDA events; min "
+          f"{min(step_ms):.2f}, max {max(step_ms):.2f}), "
+          f"{TRAIN_BATCH * cfg.DATA.SEGMENT / (median_ms / 1e3):.2f}x real time, peak "
+          f"memory {peak_gb:.2f} GB; launches per step {per_step}")
+    print(f"first step {json.dumps(values[0])}")
+    print(f"last step {json.dumps(values[-1])}")
+    # A tensor may stay unchanged only if its gradient is below AdamW's eps:
+    # the update lr·m/(sqrt(v) + eps) is then far below lr and rounds away.
+    # Any gradient above eps moves it by about lr (≥ MIN_LR = 1e-5 here) on
+    # the first step, more than half an ulp of any |parameter| < 8.
+    eps = cfg.TRAIN.OPTIMIZER.EPS
+    unchanged = {n: first_grad.get(n) for n in sorted(set(before) - set(changed))}
+    stuck = [n for n, g in unchanged.items() if g is None or not g < eps]
+    print(f"finite {finite}; parameters changed {len(changed)} of {len(before)} tensors; "
+          f"unchanged, with the first step's max|grad| (AdamW eps {eps}): {unchanged}")
+    if not finite or per_step != want or stuck:
+        raise AssertionError(f"train phase failed; unchanged with a gradient: {stuck}")
+    events = device_kernels(lambda: run(0))
+    busy = busy_us(events) / 1e3
+    by_name = Counter()
+    for name, s_, e_ in events:
+        by_name[name] += (e_ - s_) / 1e3
+    scan_ms = sum(t for name, t in by_name.items()
+                  if "chunk_kernel" in name or "chunk_carry" in name or "bwd_" in name
+                  or "reduce_rows" in name)
+    idle = (1 - busy / median_ms) if events else None
+    print(f"one profiled step: device busy {fmt_ms(busy if events else None)} in "
+          f"{len(events)} device events, scan kernels {scan_ms:.3f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} (of the median step)")
+    for n, t in by_name.most_common(12):
+        print(f"  {t:8.3f} ms  {n[:100]}")
+    ops = top_ops(lambda: run(1))
+    print("ops with the most device time of their own in one step, by input shapes:")
+    for op, shapes, t in ops:
+        print(f"  {t:8.3f} ms  {op} {shapes[:150]}")
+    report["train"] = dict(batch=TRAIN_BATCH, dtype="bfloat16", steps=n_steps, step_ms=step_ms,
+                           median_ms=median_ms, x_real_time=TRAIN_BATCH * cfg.DATA.SEGMENT
+                           / (median_ms / 1e3), peak_memory_gb=peak_gb,
+                           launches=train_launches, metrics=values,
+                           unchanged_first_grad=unchanged,
+                           device_busy_ms=busy if events else None, idle_share=idle,
+                           device_events=len(events), scan_kernels_ms=scan_ms,
+                           top=by_name.most_common(20), top_ops=ops)
+    print(f"trained in {time.perf_counter() - t0:.1f} s")
+
+    def per_train_step(name, calls, dtype):
+        """Sums over one batch-4 train step's calls of the per-shape rows."""
+        rows = {tuple(c["shape"][1:]): c for c in checks if c["kernel"] == name
+                and c["shape"][0] == TRAIN_BATCH and c["dtype"] == dtype}
+        out = {key: sum(n * rows[s][key] for s, n in calls.items())
+               for key in ("ms", "plain_ms", "bound_ms")}
+        dev = [rows[s]["device_ms"] for s in calls]
+        out["device_ms"] = None if None in dev else sum(n * rows[s]["device_ms"]
+                                                       for s, n in calls.items())
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks if c["kernel"] == name)
+        return out
+
+    def entry(name, src, replaces, parts, **extra):
+        sums = [per_train_step(*part) for part in parts]
+        dev = [x["device_ms"] for x in sums]
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=train_launches[name],
+                    max_abs_err=max(x["max_abs_err"] for x in sums),
+                    ms=sum(x["ms"] for x in sums), plain_ms=sum(x["plain_ms"] for x in sums),
+                    device_ms=None if None in dev else sum(dev),
+                    bound_ms=sum(x["bound_ms"] for x in sums), bound_by="bytes",
+                    library_ms=None, check="pass",
+                    per="one batch-4 train step, summed over its calls", **extra)
 
     kernels = [
         entry("selective_scan_fused", "vm_asr_tpu_torch/csrc/fused_scan.cu",
-              "vm_asr_tpu/ops/selective_scan_fused.py:141", FUSED_CALLS, "torch.bfloat16"),
+              "vm_asr_tpu/ops/selective_scan_fused.py:141",
+              [("selective_scan_fused", FUSED_CALLS, "torch.bfloat16")],
+              serve_launches=serve_launches["selective_scan_fused"]),
+        entry("selective_scan_fused_bwd", "vm_asr_tpu_torch/csrc/fused_scan_bwd.cu",
+              "vm_asr_tpu/ops/selective_scan_fused.py:367",
+              [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")]),
         entry("linear_recurrence", "vm_asr_tpu_torch/csrc/linear_recurrence.cu",
-              "vm_asr_tpu/ops/linear_recurrence.py:172", LR_CALLS, "torch.float32"),
+              "vm_asr_tpu/ops/linear_recurrence.py:172",
+              [("linear_recurrence", LR_CALLS, "torch.float32"),
+               ("linear_recurrence_reverse", LR_CALLS, "torch.float32")],
+              reverse_launches=train_launches["linear_recurrence_reverse"],
+              serve_launches=serve_launches["linear_recurrence"]),
     ]
     if any(c["bound_by"] != "bytes" for c in checks):
         raise AssertionError("a kernel check came out operation-bound; update bound_by")

@@ -113,6 +113,40 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_disc_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``MultiPeriodDiscriminator`` variables tree ({"params",
+    "batch_stats"}) → the port's ``state_dict``:
+
+        params/disc_i/conv_j/kernel (kh, kw, I, O) → discriminators.i.convs.j.weight (O, I, kh, kw)
+        params/disc_i/conv_j/bias                 → discriminators.i.convs.j.bias
+        batch_stats/disc_i/SpectralNorm_m/"conv_j/kernel/u" (1, O) → ….convs.j.u
+        batch_stats/disc_i/SpectralNorm_m/"conv_j/kernel/sigma" () → ….convs.j.sigma
+
+    and the same for ``conv_post``."""
+
+    def layer(disc: str, conv: str) -> str:
+        i = re.fullmatch(r"disc_(\d+)", disc)
+        j = re.fullmatch(r"conv_(\d+)", conv)
+        if i is None or (j is None and conv != "conv_post"):
+            raise KeyError(f"unknown MPD layer {disc}/{conv}")
+        return f"discriminators.{i.group(1)}." + (f"convs.{j.group(1)}" if j else "conv_post")
+
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables["params"]):
+        disc, conv, leaf = path
+        name = "weight" if leaf == "kernel" else leaf
+        out[f"{layer(disc, conv)}.{name}"] = value.transpose(3, 2, 0, 1) if leaf == "kernel" \
+            else value
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        disc, _sn, key = path
+        conv, kernel, leaf = key.split("/")
+        if kernel != "kernel" or leaf not in ("u", "sigma"):
+            raise KeyError(f"unknown MPD statistic {'/'.join(path)}")
+        out[f"{layer(disc, conv)}.{leaf}"] = value
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in out.items()}
+
+
 def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a reference generator checkpoint (``*best*G*.pth``: the
     state_dict itself or {state_dict, ...}) into ``model`` by name.

@@ -21,9 +21,10 @@
 // L is split into chunks that run in parallel (see scan_common.cuh): pass 1
 // folds each chunk, pass 2 carries the chunk states, pass 3 recomputes each
 // chunk from its carry and writes y. This is the TPU kernel's chunk carry
-// (selective_scan_fused.py:94-125) with the chunks run at once. It does not
-// emit the chunk-entry states the TPU backward reads; the backward is not
-// ported yet.
+// (selective_scan_fused.py:94-125) with the chunks run at once. Pass 2's
+// output H0 (B, n_chunks, K*D), the state entering each chunk, is the TPU
+// kernel's checkpoint `ckpt`: the wrapper keeps it for the backward kernel
+// (fused_scan_bwd.cu), which rebuilds h within each chunk from it.
 //
 // Numerics: expf / log1pf (no fast-math intrinsics), softplus written as
 // jax.nn.softplus computes it: max(x, 0) + log1p(exp(-|x|)).
@@ -104,7 +105,7 @@ int launch(const FusedArgs& args, float* P, float* S, float* H0, cudaStream_t st
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   chunk_carry_kernel<<<args.B * args.KD, kCarryThreads, 0, stream>>>(
-      P, S, H0, args.n_chunks, args.KD);
+      P, S, H0, args.n_chunks, args.KD, /*reverse=*/0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_chunk_kernel<T, true><<<blocks, kThreads, 0, stream>>>(args, nullptr, nullptr, H0);
@@ -115,8 +116,9 @@ int launch(const FusedArgs& args, float* P, float* S, float* H0, cudaStream_t st
 }  // namespace vmasr
 
 // u, dts, y: (B, L, KD); bs, cs: (B, L, K); A, bias, dskip: (KD,) fp32;
-// P, S, H0: (B, n_chunks, KD) fp32 scratch with n_chunks = ceil(L / chunk).
-// bf16 != 0: the activations are bf16, else fp32. Returns a cudaError_t.
+// P, S: (B, n_chunks, KD) fp32 scratch with n_chunks = ceil(L / chunk); H0,
+// of the same shape, receives the state entering each chunk. bf16 != 0: the
+// activations are bf16, else fp32. Returns a cudaError_t.
 extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* bs,
                                     const void* cs, const float* A, const float* bias,
                                     const float* dskip, void* y, float* P, float* S,

@@ -1,14 +1,15 @@
-"""Waveform <-> (log-magnitude, phase) images (port of vm_asr_tpu/dsp/stft.py).
+"""STFT and waveform <-> (log-magnitude, phase) images (port of
+vm_asr_tpu/dsp/stft.py).
 
 The JAX package re-implements torch.stft / torch.istft semantics; here they
-are the native calls: periodic Hann window (centre-padded to ``n_fft``),
-``center=True`` reflect padding, ``normalized=True``, one-sided spectra laid
-out ``(..., freqs, frames)``.
+are the native calls: periodic Hann window (centre-padded to ``n_fft`` when
+shorter), ``center=True`` reflect padding, one-sided spectra laid out
+``(..., freqs, frames)``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,6 +18,34 @@ def hann_window(win_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window (torch.hann_window default), float32."""
     return torch.hann_window(win_length, periodic=True, dtype=torch.float32,
                              device=device)
+
+
+def stft(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    win_length: Optional[int] = None,
+    normalized: bool = False,
+) -> torch.Tensor:
+    """Complex one-sided spectrum ``(..., n_fft // 2 + 1, frames)`` of a real
+    signal ``(..., T)``: periodic Hann window of ``win_length`` (default
+    ``n_fft``), centre-padded to ``n_fft`` when shorter, ``center=True``
+    reflect padding, frames taken in x's float dtype."""
+    win_length = win_length or n_fft
+    lead = x.shape[:-1]
+    spec = torch.stft(
+        x.reshape(-1, x.shape[-1]),
+        n_fft=n_fft,
+        hop_length=hop_length,
+        win_length=win_length,
+        window=hann_window(win_length, x.device).to(x.dtype),
+        center=True,
+        pad_mode="reflect",
+        normalized=normalized,
+        onesided=True,
+        return_complex=True,
+    )
+    return spec.reshape(lead + spec.shape[-2:])
 
 
 def amplitude_to_db(power: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
@@ -41,20 +70,7 @@ def wav2spectro(
 
     log2 scale: ``log2(|S| + 1e-8)``; dB scale: power dB with an 80 dB floor.
     """
-    lead = waveform.shape[:-1]
-    spec = torch.stft(
-        waveform.reshape(-1, waveform.shape[-1]).float(),
-        n_fft=n_fft,
-        hop_length=hop_length,
-        win_length=win_length,
-        window=hann_window(win_length, waveform.device),
-        center=True,
-        pad_mode="reflect",
-        normalized=True,
-        onesided=True,
-        return_complex=True,
-    )
-    spec = spec.reshape(lead + spec.shape[-2:])
+    spec = stft(waveform.float(), n_fft, hop_length, win_length, normalized=True)
     phase = torch.angle(spec)
     if spectro_scale == "dB":
         mag = amplitude_to_db(spec.abs().square())

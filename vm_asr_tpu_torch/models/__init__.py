@@ -1,4 +1,5 @@
-from .factory import generator_kwargs, get_generator, set_scan_impl
+from .discriminator import MultiPeriodDiscriminator, PeriodDiscriminator, SpectralNormConv2d
+from .factory import generator_kwargs, get_discriminators, get_generator, set_scan_impl
 from .layers import (
     DropPath,
     LayerNorm,
@@ -20,14 +21,18 @@ __all__ = [
     "Linear",
     "MambaUNet",
     "Mlp",
+    "MultiPeriodDiscriminator",
     "PatchEmbed",
     "PatchExpanding",
     "PatchMerging",
+    "PeriodDiscriminator",
     "SS2D",
+    "SpectralNormConv2d",
     "UNetCore",
     "VSSBlock",
     "VSSLayer",
     "generator_kwargs",
+    "get_discriminators",
     "get_generator",
     "init_parameters",
     "set_scan_impl",

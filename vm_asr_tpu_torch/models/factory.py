@@ -1,4 +1,4 @@
-"""Model factory: config → generator (port of the generator part of
+"""Model factory: config → generator and discriminators (port of
 vm_asr_tpu/models/factory.py)."""
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ from typing import Any, Dict
 import torch
 
 from ..core.device import resolve_device
+from .discriminator import MultiPeriodDiscriminator
 from .layers import init_parameters
 from .unet import DualStreamInteractiveMambaUNet
 
@@ -74,6 +75,33 @@ def get_generator(config, device="cuda", seed=None) -> DualStreamInteractiveMamb
     gen = torch.Generator().manual_seed(int(config.SEED if seed is None else seed))
     init_parameters(model, gen)
     return model.to(dev).eval()
+
+
+def get_discriminators(config, device="cuda", seed=None) -> Dict[str, torch.nn.Module]:
+    """{"mpd": MultiPeriodDiscriminator} when the config trains adversarially
+    with the MPD, else {}; initialised from a ``torch.Generator`` seeded with
+    ``seed`` (default ``config.SEED + 1``, apart from the generator's draws)
+    and placed on ``device`` (default the card). The MSD and the stacked MPD
+    are not ported and raise."""
+    dev = resolve_device(device)
+    adv = config.TRAIN.ADVERSARIAL
+    if not adv.ENABLE:
+        return {}
+    unported = [n for n in adv.DISCRIMINATORS if n not in ("mpd", "")]
+    if unported or bool(adv.get("MPD_STACKED", False)):
+        raise NotImplementedError(
+            f"discriminators {unported or 'MPD_STACKED'}: only the unstacked MPD is ported"
+        )
+    if "mpd" not in adv.DISCRIMINATORS:
+        return {}
+    compute = _DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32
+    mpd = MultiPeriodDiscriminator(
+        hidden=adv.MPD_HIDDEN, periods=tuple(adv.get("MPD_PERIODS", [2, 3, 5, 7, 11])),
+        compute_dtype=compute,
+    )
+    gen = torch.Generator().manual_seed(int(config.SEED + 1 if seed is None else seed))
+    init_parameters(mpd, gen)
+    return {"mpd": mpd.to(dev)}
 
 
 def set_scan_impl(model: torch.nn.Module, impl: str) -> None:

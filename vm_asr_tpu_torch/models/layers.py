@@ -15,6 +15,8 @@ the JAX package's init distributions (``init_from``).
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -165,18 +167,29 @@ class LayerNorm(nn.LayerNorm):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm semantics); the identity in eval."""
+    """Per-sample stochastic depth (timm semantics, vm_asr_tpu/models/layers.py
+    DropPath): in training each sample is kept with probability 1 − rate and
+    scaled by 1/keep; the identity in eval or at rate 0.
+
+    The mask is drawn from ``generator``, a ``torch.Generator`` on x's device,
+    never from the global RNG: training-mode calls with rate > 0 raise
+    without one."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if generator is None:
+            raise ValueError("DropPath in training mode draws from an explicit "
+                             "torch.Generator; pass generator=")
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                          device=x.device)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 class Mlp(nn.Module):

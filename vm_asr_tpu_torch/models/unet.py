@@ -130,15 +130,15 @@ class UNetCore:
     def embed(self, x):
         return self.patch_embed(x)
 
-    def encode(self, i: int, x):
-        return self.layers_encoder[i](x)
+    def encode(self, i: int, x, generator=None):
+        return self.layers_encoder[i](x, generator)
 
-    def decode(self, i: int, x):
-        return self.layers_decoder[i](x)
+    def decode(self, i: int, x, generator=None):
+        return self.layers_decoder[i](x, generator)
 
-    def output(self, x):
+    def output(self, x, generator=None):
         head = self.output_layer
-        return head[5](head[3](head[1](head[0](x))))
+        return head[5](head[3](head[1](head[0](x, generator), generator)), generator)
 
 
 def _low_band_mask(out, hf):
@@ -244,8 +244,13 @@ class DualStreamInteractiveMambaUNet(MambaUNet):
         p = p + m
         return m, p
 
-    def forward(self, x: torch.Tensor, hf: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, T) or (B, 1, T) waveform; hf: (B,) highcut bin indices."""
+    def forward(self, x: torch.Tensor, hf: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, T) or (B, 1, T) waveform; hf: (B,) highcut bin indices.
+
+        In training mode (``model.train()``) every DropPath draws its mask
+        from ``generator``, a ``torch.Generator`` on x's device (the JAX
+        package's ``deterministic=False`` with a "dropout" rng)."""
         chan = x.dim() == 3
         if chan:
             x = x[:, 0, :]
@@ -261,8 +266,8 @@ class DualStreamInteractiveMambaUNet(MambaUNet):
         p = self.core_phase.embed(phase[..., None].to(self.compute_dtype))
         skips = [(m, p)]
         for i in range(n):
-            m = self.core_mag.encode(i, m)
-            p = self.core_phase.encode(i, p)
+            m = self.core_mag.encode(i, m, generator)
+            p = self.core_phase.encode(i, p, generator)
             if i < n - 1:
                 skips.append((m, p))
             m, p = self._interact(m, p)
@@ -276,8 +281,8 @@ class DualStreamInteractiveMambaUNet(MambaUNet):
                     m, p = torch.cat([m, ms], dim=-1), torch.cat([p, ps], dim=-1)
                 else:
                     m, p = m + ms, p + ps
-            m = self.core_mag.decode(i, m)
-            p = phase_core.decode(i, p)
+            m = self.core_mag.decode(i, m, generator)
+            p = phase_core.decode(i, p, generator)
             m, p = self._interact(m, p)
 
         ms, ps = skips.pop()
@@ -285,8 +290,8 @@ class DualStreamInteractiveMambaUNet(MambaUNet):
             m, p = torch.cat([m, ms], dim=-1), torch.cat([p, ps], dim=-1)
         else:
             m, p = m + ms, p + ps
-        m = self.core_mag.output(m)
-        p = self.core_phase.output(p)
+        m = self.core_mag.output(m, generator)
+        p = self.core_phase.output(p, generator)
 
         mag = m[..., 0].float() + residual_mag
         phase = p[..., 0].float()

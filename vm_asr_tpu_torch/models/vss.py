@@ -1,5 +1,6 @@
 """VSSBlock and VSSLayer (port of vm_asr_tpu/models/vss.py; reference
-vmamba.py:1753-1843, model.py:889-958). Pre-norm blocks, eval path only."""
+vmamba.py:1753-1843, model.py:889-958). Pre-norm blocks. ``generator`` feeds
+the DropPath masks in training mode (the JAX package's "dropout" rng)."""
 
 from __future__ import annotations
 
@@ -55,11 +56,12 @@ class VSSBlock(nn.Module):
             self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
                            act=mlp_act, compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if self.ssm_branch:
-            x = x + self.drop_path(self.op(self.norm(x)))
+            x = x + self.drop_path(self.op(self.norm(x)), generator)
         if self.mlp_branch:
-            x = x + self.drop_path(self.mlp(self.norm2(x)))
+            x = x + self.drop_path(self.mlp(self.norm2(x)), generator)
         return x
 
 
@@ -98,9 +100,10 @@ class VSSLayer(nn.Module):
         else:
             raise ValueError(f"unknown sampler {sampler!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if self.skip_handler is not None:
             x = self.skip_handler[1](x)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         return x if self.sampler is None else self.sampler(x)

@@ -15,7 +15,12 @@ reference's force_fp32 at the scan boundary); the scan then returns fp32.
 
 ``impl="kernel"`` calls the kernel wrappers, which run their plain versions
 for CPU tensors; ``impl="plain"`` calls the plain versions on any device, so
-that a run on the card can hold the kernels against them.
+that a run on the card can hold the kernels against them; ``impl="plain64"``
+runs the plain versions in fp64, a witness that shows how far the fp32
+routes' rounding moves a result. The routes are
+differentiable: the kernel wrappers are autograd Functions whose backward is a
+kernel (fused backward; the recurrence run in reverse), and the plain
+versions are torch ops under plain autograd.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from .linear_recurrence import linear_recurrence, linear_recurrence_plain
 from .selective_scan_fused import selective_scan_fused, selective_scan_fused_plain
 from .selective_scan_ref import softplus
 
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "plain64")
 
 
 def selective_scan(
@@ -43,12 +48,16 @@ def selective_scan(
     fp32_io: bool = False,
     impl: str = "kernel",
 ) -> torch.Tensor:
-    """Returns y: (B, L, K, D) in u's dtype; scan maths in fp32."""
+    """Returns y: (B, L, K, D) in u's dtype; scan maths in fp32 (fp64 for
+    ``impl="plain64"``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if fp32_io:
         u, dts, Bs, Cs = (t.float() for t in (u, dts, Bs, Cs))
     in_dtype = u.dtype
+    maths = torch.float64 if impl == "plain64" else torch.float32
+    if impl == "plain64":
+        u = u.double()
     b, l, k, d = u.shape
     n = A.shape[-1]
 
@@ -64,31 +73,31 @@ def selective_scan(
         fused = selective_scan_fused if impl == "kernel" else selective_scan_fused_plain
         y = fused(
             u.reshape(b, l, k * d).contiguous(),
-            dts.to(in_dtype).reshape(b, l, k * d).contiguous(),
-            Bs[..., 0].to(in_dtype).contiguous(),
-            Cs[..., 0].to(in_dtype).contiguous(),
-            A[..., 0].float().reshape(k * d).contiguous(),
-            dt_bias.float().reshape(k * d).contiguous(),
-            D_skip.float().reshape(k * d).contiguous(),
+            dts.to(u.dtype).reshape(b, l, k * d).contiguous(),
+            Bs[..., 0].to(u.dtype).contiguous(),
+            Cs[..., 0].to(u.dtype).contiguous(),
+            A[..., 0].to(maths).reshape(k * d).contiguous(),
+            dt_bias.to(maths).reshape(k * d).contiguous(),
+            D_skip.to(maths).reshape(k * d).contiguous(),
             k,
         )
         return y.reshape(b, l, k, d).to(in_dtype)
 
     recur = linear_recurrence if impl == "kernel" else linear_recurrence_plain
-    uf = u.float()
-    dt = dts.float()
+    uf = u.to(maths)
+    dt = dts.to(maths)
     if dt_bias is not None:
-        dt = dt + dt_bias.float()[None, None]
+        dt = dt + dt_bias.to(maths)[None, None]
     if delta_softplus:
         dt = softplus(dt)
-    Af = A.float()
+    Af = A.to(maths)
     dtu = dt * uf
     y = torch.zeros_like(uf)
     for i in range(n):
         a = torch.exp(dt * Af[None, None, :, :, i])
-        bi = dtu * Bs[..., i:i + 1].float()
+        bi = dtu * Bs[..., i:i + 1].to(maths)
         h = recur(a.reshape(b, l, k * d), bi.reshape(b, l, k * d)).reshape(b, l, k, d)
-        y = y + h * Cs[..., i:i + 1].float()
+        y = y + h * Cs[..., i:i + 1].to(maths)
     if D_skip is not None:
-        y = y + D_skip.float()[None, None] * uf
+        y = y + D_skip.to(maths)[None, None] * uf
     return y.to(in_dtype)

@@ -1,5 +1,15 @@
 from .inferencer import Inferencer
-from .steps import SEG_BUCKETS, bucketed_forward, make_forward_fn, segment_bucket_counts
+from .optim import Optimizer, make_optimizer, make_schedule
+from .states import DiscState, GenState
+from .steps import (
+    SEG_BUCKETS,
+    bucketed_forward,
+    make_eval_step,
+    make_forward_fn,
+    make_train_step,
+    segment_bucket_counts,
+)
 
-__all__ = ["Inferencer", "SEG_BUCKETS", "bucketed_forward", "make_forward_fn",
-           "segment_bucket_counts"]
+__all__ = ["DiscState", "GenState", "Inferencer", "Optimizer", "SEG_BUCKETS",
+           "bucketed_forward", "make_eval_step", "make_forward_fn", "make_optimizer",
+           "make_schedule", "make_train_step", "segment_bucket_counts"]
