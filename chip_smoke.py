@@ -8,12 +8,15 @@ before printing any result otherwise. Imports nothing of JAX. Phases, each
 raising on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compile the CUDA kernels from vm_asr_tpu_torch/csrc with nvcc.
+2. build: compile the CUDA kernels from vm_asr_tpu_torch/csrc with nvcc and
+   print what ptxas made of each kernel (registers, shared memory, spills).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the flagship 48 kHz forward (batch 1; the fused scan also at
    batch 8, the largest segment bucket) and train step (batch 4) give it:
    the fused forward and backward, the recurrence forward and reverse, with
-   CUDA-event times beside the memory bound.
+   CUDA-event times beside the memory bound and device time by pass, under
+   the exact kernel names each wrapper module exports. The backward also
+   runs twice for bitwise-equal outputs, and is timed with a cold L2.
 4. model: one flagship segment in fp32 through the generator with the
    kernels, and again with the scan routed to the plain versions.
 5. train gradient: the fp32 flagship generator loss (STFT + MPD, batch 1)
@@ -25,7 +28,8 @@ raising on failure:
 7. profile: one batch-1 forward under torch.profiler.
 8. train: the flagship GAN train step (batch 4, bf16, MPD, AdamW), 3
    warm-up and 10 timed steps on synthetic speech, with launch counts, then
-   one profiled step by kernel and one by op and input shapes.
+   one profiled step by kernel (each wrapper's kernels by their exported
+   names) and one by op and input shapes.
 9. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
@@ -61,7 +65,13 @@ from vm_asr_tpu_torch.ops import (
     selective_scan_fused_fwd,
     selective_scan_fused_plain,
 )
-from vm_asr_tpu_torch.ops.build import build
+from vm_asr_tpu_torch.ops.build import SOURCES, build, ptxas_info
+from vm_asr_tpu_torch.ops.linear_recurrence import (
+    CARRY_KERNEL,
+    LR_KERNELS,
+    LR_REVERSE_KERNELS,
+)
+from vm_asr_tpu_torch.ops.selective_scan_fused import BWD_KERNELS, FWD_KERNELS
 from vm_asr_tpu_torch.train import (
     DiscState,
     GenState,
@@ -110,10 +120,11 @@ MODEL_REL_TOL = 1e-5
 # Backward kernels vs plain backward, elementwise. fp32: the JAX package's bar
 # for the scan gradients (tests/test_fused_scan.py:50-51); the adjoint scans
 # associate differently (the recurrence's reverse dh sums up to ~1/(1 - a) ≈
-# 1000 terms, so its rounding exceeds the forward's 1e-4 bar), dB/dC are
-# summed by atomics in an order that changes from run to run, and
-# dA/dbias/dD are sums over B·L (up to 65 536 terms) taken in another order. bf16 du, ddts, dB, dC: both round one fp32
-# result to bf16, one ulp ≤ 2^-7 of the value apart; dA/dbias/dD stay fp32.
+# 1000 terms, so its rounding exceeds the forward's 1e-4 bar), dB/dC sum the
+# D lanes of a direction in another order than the plain version, and
+# dA/dbias/dD are sums over B·L (up to 65 536 terms) taken in another order.
+# bf16 du, ddts, dB, dC: both round one fp32 result to bf16, one ulp ≤ 2^-7
+# of the value apart; dA/dbias/dD stay fp32.
 BWD_FP32_TOL = dict(rtol=1e-3, atol=1e-3)
 BWD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
 # Generator gradient, fp32 (TF32 off), per tensor, against a witness that
@@ -133,6 +144,14 @@ BWD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
 # dropped a gradient leaves zeros: a 100 % difference, which fails this bar
 # and the nonzero check on every SS2D parameter.
 GRAD_REL, GRAD_FLOOR = 3e-3, 1.2e-7
+# Cold-L2 timing: this many bytes written to a scratch buffer before each
+# timed call (the H100's L2 holds 50 MB), then a spin of the device while the
+# host enqueues the call, so that the call's events time its kernels alone.
+FLUSH_BYTES = 256 << 20
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz
+# Each wrapper's device kernels by pass, as its module exports them.
+KERNEL_NAMES = {"selective_scan_fused": FWD_KERNELS, "selective_scan_fused_bwd": BWD_KERNELS,
+                "linear_recurrence": LR_KERNELS, "linear_recurrence_reverse": LR_REVERSE_KERNELS}
 
 
 def fmt_ms(ms) -> str:
@@ -215,11 +234,75 @@ def busy_us(events) -> float:
     return total
 
 
-def device_ms(fn, n: int = 10):
-    """Device time of one call (kernels only, no launch gaps), in ms; None if
-    the profiler recorded no device events."""
-    events = device_kernels(fn, n)
-    return busy_us(events) / n / 1e3 if events else None
+def by_pass(events, kernels):
+    """(calls, {pass: device ms per call}) of one wrapper, from the device
+    events of some of its calls; raises on a kernel that no pass of the
+    wrapper's exported names holds. calls is None when the passes were not
+    captured the same number of times (the profiler dropped some events)."""
+    per, seen = dict.fromkeys(kernels, 0.0), Counter()
+    for name, s_, e_ in events:
+        p = next((p for p, names in kernels.items() if name in names), None)
+        if p is None:
+            raise AssertionError(f"device kernel {name!r} is in no pass of {list(kernels)}")
+        per[p] += (e_ - s_) / 1e3
+        seen[p] += 1
+    calls = seen[next(iter(kernels))]
+    if calls == 0 or any(seen[p] != calls for p in kernels):
+        return None, None
+    return calls, {p: t / calls for p, t in per.items()}
+
+
+def device_split(fn, kernels, n: int = 10, tries: int = 3):
+    """(device ms of one call, kernels only, no launch gaps; {pass: ms}),
+    over the calls that a capture of ``n`` calls holds whole; (None, None)
+    if no capture in ``tries`` held them."""
+    for _ in range(tries):
+        events = device_kernels(fn, n)
+        calls, passes = by_pass(events, kernels)
+        if calls:
+            return busy_us(events) / calls / 1e3, passes
+    return None, None
+
+
+def by_wrapper(events):
+    """Device ms and calls of each wrapper's kernels among ``events``, by the
+    exact names each wrapper module exports. The chunk-carry kernel, shared
+    by all four, goes to the wrapper whose fold ran just before it on the
+    stream; a call is counted at its fold."""
+    owner = {name: w for w, kernels in KERNEL_NAMES.items()
+             for names in kernels.values() for name in names if name != CARRY_KERNEL}
+    ms, calls, last = Counter(), Counter(), None
+    for name, s_, e_ in sorted(events, key=lambda ev: ev[1]):
+        if name == CARRY_KERNEL:
+            if last is None:
+                raise AssertionError("a chunk-carry kernel ran after no scan wrapper's fold")
+            ms[last] += (e_ - s_) / 1e3
+            continue
+        last = owner.get(name)
+        if last is not None:
+            ms[last] += (e_ - s_) / 1e3
+            calls[last] += name in KERNEL_NAMES[last]["fold"]
+    return ms, calls
+
+
+def cold_ms(fn, reps: int = 11) -> float:
+    """Median ms of one call with a cold L2, by CUDA events around each call:
+    FLUSH_BYTES written to a scratch buffer, then a device spin while the
+    host enqueues the call."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s_.elapsed_time(e_) for s_, e_ in marks)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -276,23 +359,26 @@ def check_fused(batch, l, kd, dtype, gen):
     size = u.element_size()
     nbytes = (3 * batch * l * kd + 2 * batch * l * K) * size + 3 * kd * 4
     bms, by = bound_ms(nbytes, FUSED_OPS * batch * l * kd)
+    dev, passes = device_split(lambda: selective_scan_fused(*args), FWD_KERNELS)
     return dict(kernel="selective_scan_fused", shape=[batch, l, kd], dtype=str(dtype),
                 max_abs_err=err, tol=tol, bytes=nbytes,
-                ms=cuda_ms(lambda: selective_scan_fused(*args)),
-                device_ms=device_ms(lambda: selective_scan_fused(*args)),
+                ms=cuda_ms(lambda: selective_scan_fused(*args)), device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: selective_scan_fused_plain(*args), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
 
 
 def check_fused_bwd(batch, l, kd, dtype, gen):
     """The backward kernel's seven outputs against the plain backward, on the
-    forward kernel's H0 and chunk."""
+    forward kernel's H0 and chunk, and against a second call of the kernel,
+    bit for bit: no sum depends on the order in which blocks run."""
     (u, dts, bs, cs, a, bias, dsk, k), dy = fused_inputs(batch, l, kd, dtype, gen)
     _, h0, chunk = selective_scan_fused_fwd(u, dts, bs, cs, a, bias, dsk, k)
     kernel = lambda: selective_scan_fused_bwd(u, dts, bs, cs, dy, a, bias, dsk, h0, chunk, k)  # noqa: E731
     plain = lambda: selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a, bias, dsk, k)  # noqa: E731
-    got, ref = kernel(), plain()
+    got, again, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"fused bwd {(batch, l, kd)} {dtype}: two calls differ")
     err = 0.0
     for i, (name, g_, r_) in enumerate(zip(("du", "ddts", "dbs", "dcs", "dA", "dbias", "dD"),
                                            got, ref)):
@@ -303,13 +389,16 @@ def check_fused_bwd(batch, l, kd, dtype, gen):
         err = max(err, check_close(f"fused bwd {name} {(batch, l, kd)} {dtype}", g_, r_, tol))
     size = u.element_size()
     n_chunks = h0.shape[1]
-    nbytes = (5 * batch * l * kd + 2 * batch * l * K) * size + 2 * batch * l * K * 4 \
-        + batch * n_chunks * kd * 4 + 6 * kd * 4
+    # u, dts, dy read and du, ddts written; B, C read and dB, dC written; H0
+    # read; A, bias, D_skip read and dA, dbias, dD written.
+    nbytes = (5 * batch * l * kd + 4 * batch * l * K) * size + batch * n_chunks * kd * 4 \
+        + 6 * kd * 4
     bms, by = bound_ms(nbytes, FUSED_BWD_OPS * batch * l * kd)
     tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_FP32_TOL
+    dev, passes = device_split(kernel, BWD_KERNELS)
     return dict(kernel="selective_scan_fused_bwd", shape=[batch, l, kd], dtype=str(dtype),
                 chunk=chunk, max_abs_err=err, tol=tol, bytes=nbytes,
-                ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                ms=cuda_ms(kernel), device_ms=dev, passes=passes, cold_ms=cold_ms(kernel),
                 plain_ms=cuda_ms(plain, reps=3, per=3), bound_ms=bms, bound_by=by)
 
 
@@ -328,10 +417,11 @@ def check_lr_reverse(rows, l, d, gen):
               for name, x, y in zip(("da", "db"), got, ref))
     nbytes = 5 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_REV_OPS * rows * l * d)
+    dev, passes = device_split(lambda: linear_recurrence_reverse(a, h, grad), LR_REVERSE_KERNELS)
     return dict(kernel="linear_recurrence_reverse", shape=[rows, l, d], dtype="torch.float32",
                 max_abs_err=err, tol=BWD_FP32_TOL, bytes=nbytes,
                 ms=cuda_ms(lambda: linear_recurrence_reverse(a, h, grad)),
-                device_ms=device_ms(lambda: linear_recurrence_reverse(a, h, grad)),
+                device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
                                  reps=3, per=3),
                 bound_ms=bms, bound_by=by)
@@ -350,10 +440,10 @@ def check_lr(rows, l, d, gen):
                       FP32_TOL)
     nbytes = 3 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_OPS * rows * l * d)
+    dev, passes = device_split(lambda: linear_recurrence(a, b), LR_KERNELS)
     return dict(kernel="linear_recurrence", shape=[rows, l, d], dtype="torch.float32",
                 max_abs_err=err, tol=FP32_TOL, bytes=nbytes,
-                ms=cuda_ms(lambda: linear_recurrence(a, b)),
-                device_ms=device_ms(lambda: linear_recurrence(a, b)),
+                ms=cuda_ms(lambda: linear_recurrence(a, b)), device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: linear_recurrence_plain(a, b), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
 
@@ -435,6 +525,11 @@ def main() -> int:
     built = build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, in parallel)")
     report["build_s"] = time.perf_counter() - t0
+    report["ptxas"] = {src: ptxas_info(src) for src in SOURCES}
+    for src, lines in report["ptxas"].items():
+        print(f"ptxas, {src}:")
+        for line in lines:
+            print(f"  {line}")
 
     t0 = phase("kernels vs plain, every main-path shape")
     gen = torch.Generator().manual_seed(0)
@@ -447,7 +542,7 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             checks.append(check_fused_bwd(TRAIN_BATCH, l, kd, dtype, gen))
     # Off the main path, for the chunk boundaries: L no multiple of the chunk
-    # (16, 32) over many chunks, and chunks of 2 and 4 sub-blocks (32, 64).
+    # (16, 32) over many chunks, and chunks of 2 and 4 sub-tiles (32, 64).
     for shape in ((2, 1000, 128), (1, 5000, 1024), (8, 16384, 128)):
         checks.append(check_fused_bwd(*shape, torch.float32, gen))
     # D = 48, no multiple of a warp: the first stage of the dims-24 config
@@ -455,15 +550,23 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         checks.append(check_fused_bwd(TRAIN_BATCH, 16384, 192, dtype, gen))
     checks.append(check_fused_bwd(2, 1000, 192, torch.float32, gen))
+    # D = 33, odd: a channel group's rows are no whole 16-byte pieces, so the
+    # backward's pass 3 stages and stores by plain loads, and its bf16 fold
+    # takes one channel per thread.
+    for dtype in (torch.bfloat16, torch.float32):
+        checks.append(check_fused_bwd(2, 1000, 132, dtype, gen))
     for rows in (1, TRAIN_BATCH):
         for (l, d) in LR_CALLS:
             checks.append(check_lr(rows, l, d, gen))
     for (l, d) in LR_CALLS:
         checks.append(check_lr_reverse(TRAIN_BATCH, l, d, gen))
     for c in checks:
+        passes = "not measured" if c["passes"] is None else \
+            ", ".join(f"{p} {t:.4f}" for p, t in c["passes"].items())
+        extra = f"; cold L2 {c['cold_ms']:.4f} ms; bitwise repeatable" if "cold_ms" in c else ""
         print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]}: max|err| "
               f"{c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms "
-              f"(device {fmt_ms(c['device_ms'])}), plain "
+              f"(device {fmt_ms(c['device_ms'])}: {passes}){extra}, plain "
               f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
               f"{c['bytes'] / 1e6:.2f} MB)")
     report["kernel_checks"] = checks
@@ -632,8 +735,7 @@ def main() -> int:
     by_name = Counter()
     for name, s_, e_ in events:
         by_name[name] += (e_ - s_) / 1e3
-    scan_ms = sum(t for name, t in by_name.items()
-                  if "chunk_kernel" in name or "chunk_carry" in name)
+    scan_ms = sum(by_wrapper(events)[0].values())
     prof = dict(wall_ms=wall_ms, device_busy_ms=busy if events else None,
                 device_events=len(events), scan_kernels_ms=scan_ms,
                 idle_share=(1 - busy / wall_ms) if events else None,
@@ -713,18 +815,25 @@ def main() -> int:
           f"unchanged, with the first step's max|grad| (AdamW eps {eps}): {unchanged}")
     if not finite or per_step != want or stuck:
         raise AssertionError(f"train phase failed; unchanged with a gradient: {stuck}")
-    events = device_kernels(lambda: run(0))
+    for _ in range(3):  # a capture that dropped events counts the scan calls short
+        events = device_kernels(lambda: run(0))
+        in_step, in_step_calls = by_wrapper(events)
+        if dict(in_step_calls) == want:
+            break
     busy = busy_us(events) / 1e3
     by_name = Counter()
     for name, s_, e_ in events:
         by_name[name] += (e_ - s_) / 1e3
-    scan_ms = sum(t for name, t in by_name.items()
-                  if "chunk_kernel" in name or "chunk_carry" in name or "bwd_" in name
-                  or "reduce_rows" in name)
+    scan_ms = sum(in_step.values())
     idle = (1 - busy / median_ms) if events else None
     print(f"one profiled step: device busy {fmt_ms(busy if events else None)} in "
           f"{len(events)} device events, scan kernels {scan_ms:.3f} ms, idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'} (of the median step)")
+    print(f"scan kernels in the step, by wrapper (exported kernel names): "
+          f"{ {w: round(t, 4) for w, t in in_step.items()} } ms, calls {dict(in_step_calls)}")
+    if events and dict(in_step_calls) != want:
+        raise AssertionError(f"profiled step: scan calls by kernel name {dict(in_step_calls)} "
+                             f"!= {want}")
     for n, t in by_name.most_common(12):
         print(f"  {t:8.3f} ms  {n[:100]}")
     ops = top_ops(lambda: run(1))
@@ -738,7 +847,8 @@ def main() -> int:
                            unchanged_first_grad=unchanged,
                            device_busy_ms=busy if events else None, idle_share=idle,
                            device_events=len(events), scan_kernels_ms=scan_ms,
-                           top=by_name.most_common(20), top_ops=ops)
+                           scan_kernels_by_wrapper=in_step, top=by_name.most_common(20),
+                           top_ops=ops)
     print(f"trained in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype):
@@ -761,9 +871,20 @@ def main() -> int:
                     max_abs_err=max(x["max_abs_err"] for x in sums),
                     ms=sum(x["ms"] for x in sums), plain_ms=sum(x["plain_ms"] for x in sums),
                     device_ms=None if None in dev else sum(dev),
+                    in_step_device_ms=sum(in_step[part[0]] for part in parts) if events else None,
                     bound_ms=sum(x["bound_ms"] for x in sums), bound_by="bytes",
                     library_ms=None, check="pass",
                     per="one batch-4 train step, summed over its calls", **extra)
+
+    bwd_step = per_train_step("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")
+    bwd_rows = [c for c in checks if c["kernel"] == "selective_scan_fused_bwd"
+                and c["shape"][0] == TRAIN_BATCH and c["dtype"] == "torch.bfloat16"
+                and tuple(c["shape"][1:]) in FUSED_CALLS]
+    bwd_cold = sum(FUSED_CALLS[tuple(c["shape"][1:])] * c["cold_ms"] for c in bwd_rows)
+    print(f"fused backward per train step: in the profiled step "
+          f"{fmt_ms(in_step['selective_scan_fused_bwd'] if events else None)} device; "
+          f"back to back {fmt_ms(bwd_step['device_ms'])} device, {bwd_step['ms']:.4f} ms "
+          f"wrapper; cold L2 {bwd_cold:.4f} ms; bound {bwd_step['bound_ms']:.4f} ms")
 
     kernels = [
         entry("selective_scan_fused", "vm_asr_tpu_torch/csrc/fused_scan.cu",
@@ -772,7 +893,7 @@ def main() -> int:
               serve_launches=serve_launches["selective_scan_fused"]),
         entry("selective_scan_fused_bwd", "vm_asr_tpu_torch/csrc/fused_scan_bwd.cu",
               "vm_asr_tpu/ops/selective_scan_fused.py:367",
-              [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")]),
+              [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")], cold_ms=bwd_cold),
         entry("linear_recurrence", "vm_asr_tpu_torch/csrc/linear_recurrence.cu",
               "vm_asr_tpu/ops/linear_recurrence.py:172",
               [("linear_recurrence", LR_CALLS, "torch.float32"),

@@ -4,7 +4,9 @@ Each source in ``vm_asr_tpu_torch/csrc/`` that exports a plain C function
 becomes one shared library, compiled for Hopper (``sm_90a``) at first use and
 cached under ``build/kernels/`` at the repository root, keyed by a hash of the
 sources, the headers and the flags. ``build()`` compiles every missing
-library with one ``nvcc`` per source, all started together::
+library with one ``nvcc`` per source, all started together, and keeps each
+nvcc's log beside its library (``ptxas_info`` reads from it what ptxas made of
+each kernel: registers, shared memory, spill stores and loads)::
 
     python -c "from vm_asr_tpu_torch.ops.build import build; print(build())"
 
@@ -29,7 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_scan.cu", "fused_scan_bwd.cu", "linear_recurrence.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -85,10 +87,20 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, float]:
             failures.append(f"nvcc {src} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def ptxas_info(source: str) -> list:
+    """ptxas's lines for the built library of ``source``: per kernel, its
+    registers and constant/shared memory ("ptxas info : Used ...") and its
+    stack frame with spill stores and loads."""
+    log = library_path(source).with_suffix(".log")
+    return [line.strip() for line in log.read_text().splitlines()
+            if "ptxas info" in line or "spill" in line]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -19,6 +19,24 @@ import torch
 from .build import load
 from .selective_scan_ref import linear_recurrence_ref
 
+# The device kernels one launch runs, by pass, under the names torch.profiler
+# gives them (demangled). chunk_carry_kernel (csrc/scan_common.cuh) is built
+# into each scan library and carries every chunked scan's states.
+CARRY_KERNEL = "vmasr::chunk_carry_kernel(float const*, float const*, float*, int, int, int)"
+_LR_ARGS = ("(float const*, float const*, float const*, float*, float*, float*, float*, "
+            "float const*, int, int, int, int, int)")
+
+
+def _lr_kernel_name(write: bool, reverse: bool) -> str:
+    flags = ", ".join(str(f).lower() for f in (write, reverse))
+    return f"void vmasr::(anonymous namespace)::lr_chunk_kernel<{flags}>{_LR_ARGS}"
+
+
+LR_KERNELS = {"fold": (_lr_kernel_name(False, False),), "carry": (CARRY_KERNEL,),
+              "chunk": (_lr_kernel_name(True, False),)}
+LR_REVERSE_KERNELS = {"fold": (_lr_kernel_name(False, True),), "carry": (CARRY_KERNEL,),
+                      "chunk": (_lr_kernel_name(True, True),)}
+
 # Threads the chunked kernels aim to start: about one full load of the
 # card's 132 SMs × 2048 resident threads.
 _TARGET_THREADS = 1 << 18

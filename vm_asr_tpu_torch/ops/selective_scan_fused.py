@@ -20,14 +20,38 @@ ignores ``H0``. Each launch adds one to ``selective_scan_fused.launches`` or
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .build import load
-from .linear_recurrence import chunk_length
+from .linear_recurrence import CARRY_KERNEL, chunk_length
 from .selective_scan_ref import linear_recurrence_ref, softplus
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# The device kernels one launch of each wrapper runs, by pass, under the
+# names torch.profiler gives them (demangled), for bf16 and fp32 IO. The
+# backward's fold takes two bf16 channels per 4-byte load where the rows
+# allow, else one channel per thread.
+_NS = "vmasr::(anonymous namespace)::"
+_TYPES = ("__nv_bfloat16", "float")
+FWD_KERNELS = {
+    "fold": tuple(f"void {_NS}fused_chunk_kernel<{t}, false>({_NS}FusedArgs, float*, float*, "
+                  "float const*)" for t in _TYPES),
+    "carry": (CARRY_KERNEL,),
+    "chunk": tuple(f"void {_NS}fused_chunk_kernel<{t}, true>({_NS}FusedArgs, float*, float*, "
+                   "float const*)" for t in _TYPES),
+}
+BWD_KERNELS = {
+    "fold": tuple(f"void {_NS}bwd_fold_kernel<{t}, {v}>({_NS}BwdArgs, float*, float*)"
+                  for t, v in (("__nv_bfloat16", 2), ("__nv_bfloat16", 1), ("float", 1))),
+    "carry": (CARRY_KERNEL,),
+    "tile": tuple(f"void {_NS}bwd_tile_kernel<{t}>({_NS}BwdArgs, {_NS}Tile, float const*, "
+                  "float*, float*)" for t in _TYPES),
+    "reduce": (f"{_NS}reduce_rows_kernel(float const*, float*, int, int)",),
+}
 
 
 def selective_scan_fused_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip,
@@ -87,11 +111,75 @@ def _fwd_kernel():
     return fn
 
 
+@functools.cache
 def _bwd_kernel():
     fn = load("fused_scan_bwd.cu").vmasr_fused_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# Pass 3 of the backward kernel (csrc/fused_scan_bwd.cu) runs one thread per
+# channel of a CTA's channel group and stages S steps of the group in shared
+# memory. H100: 228 KB of shared memory per SM, 1 KB of it reserved per CTA,
+# at most 232 448 bytes for one CTA.
+SM_SMEM_BYTES = 233_472
+CTA_RESERVED_BYTES = 1_024
+BLOCK_SMEM_MAX = 232_448
+_MIN_GROUP = 128        # channels per CTA: rows of >= 256 bytes in bf16
+_MAX_STEPS = 16         # measured faster than 32 at (4, 16384, 128) on an H100
+_MIN_CTAS_PER_SM = 2
+_MAX_TILE_THREADS = 512
+_BATCH = 4              # the kernel's steps per batch (kBatch)
+
+
+class TileLayout(NamedTuple):
+    channels: int    # per CTA: a whole number of directions
+    threads: int     # per CTA: one per channel, rounded up to a warp
+    steps: int       # per sub-tile
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def bwd_tile_smem(channels: int, steps: int, k_group: int, itemsize: int) -> int:
+    """Shared memory of one pass-3 CTA (csrc/fused_scan_bwd.cu:smem_bytes),
+    for ``rows`` = ``steps`` rounded up to the kernel's batch of 4: h_{t-1},
+    dt, a, sigmoid in fp32 for ``channels`` × (``rows`` + 1), and the staging
+    buffer of u, dts, dy (``rows`` × ``channels``) and B, C (``rows`` ×
+    ``k_group``) in the IO dtype, each array rounded up to 16 bytes."""
+    def r16(n):
+        return -(-n // 16) * 16
+    rows = -(-steps // _BATCH) * _BATCH
+    buf = 3 * r16(rows * channels * itemsize) + 2 * r16(rows * k_group * itemsize)
+    return 16 * channels * (rows + 1) + buf
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> TileLayout:
+    """Geometry of the backward kernel's pass 3 for (B, L, ``kd``) inputs of
+    ``itemsize`` bytes in L-chunks of ``chunk``. A CTA takes the fewest whole
+    directions that make at least 128 channels (one direction when D >= 128),
+    and the most steps (up to 16, and up to the chunk) that let two CTAs share
+    an SM's shared memory, or one batch of the kernel's steps where none do
+    (D = 512 in fp32)."""
+    if k_group <= 0 or kd % k_group:
+        raise ValueError(f"K·D = {kd} is not a multiple of K = {k_group}")
+    d = kd // k_group
+    n_dir = next((m for m in range(1, k_group + 1)
+                  if k_group % m == 0 and m * d >= _MIN_GROUP), k_group)
+    channels = n_dir * d
+    threads = -(-channels // 32) * 32
+    if threads > _MAX_TILE_THREADS:
+        raise ValueError(f"the backward kernel takes D <= {_MAX_TILE_THREADS}, got D = {d}")
+    steps = min(chunk, _MAX_STEPS)
+    fits = lambda s: _MIN_CTAS_PER_SM * (bwd_tile_smem(channels, s, k_group, itemsize)  # noqa: E731
+                                         + CTA_RESERVED_BYTES) <= SM_SMEM_BYTES
+    while steps > _BATCH and not fits(steps):  # the tile holds whole batches anyway
+        steps //= 2
+    smem = bwd_tile_smem(channels, steps, k_group, itemsize)
+    if smem > BLOCK_SMEM_MAX:
+        raise ValueError(f"the backward kernel's tile for D = {d} needs {smem} bytes of shared "
+                         f"memory, above {BLOCK_SMEM_MAX}")
+    return TileLayout(channels, threads, steps, smem)
 
 
 def _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
@@ -120,8 +208,7 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _stream(device):
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int):
@@ -169,22 +256,27 @@ def selective_scan_fused_bwd(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip, h0,
     if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != u.device \
             or not dy.is_contiguous():
         raise ValueError("dy must be a contiguous tensor of u's shape, dtype and device")
+    tile = bwd_tile_layout(kd, k_group, chunk, u.element_size())
+    n_sub = -(-chunk // tile.steps)
+    # Planes of B·n_chunks·K·D floats: P and S (later the dA and dbias
+    # partials), the dD partials, G, and h at the sub-tile starts of chunks
+    # longer than a sub-tile.
+    planes = 4 + (n_sub if n_sub > 1 else 0)
     du, ddts = torch.empty_like(u), torch.empty_like(dts)
-    dbs, dcs = torch.zeros((2, bsz, l, k_group), dtype=torch.float32, device=u.device)
-    dparams = torch.empty((3, kd), dtype=torch.float32, device=u.device)
-    p, s, g = torch.empty((3, bsz, n_chunks, kd), dtype=torch.float32, device=u.device)
-    part = torch.empty((3, bsz * n_chunks, kd), dtype=torch.float32, device=u.device)
+    dbs, dcs = torch.empty((2, bsz, l, k_group), dtype=u.dtype, device=u.device)
+    work = torch.empty(3 * kd + planes * bsz * n_chunks * kd, dtype=torch.float32,
+                       device=u.device)  # dA, dbias, dD, then the planes
     err = _bwd_kernel()(
         u.data_ptr(), dts.data_ptr(), bs.data_ptr(), cs.data_ptr(), dy.data_ptr(),
         a_neg.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
         du.data_ptr(), ddts.data_ptr(), dbs.data_ptr(), dcs.data_ptr(),
-        dparams.data_ptr(), p.data_ptr(), s.data_ptr(), g.data_ptr(), part.data_ptr(),
-        bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16), _stream(u.device))
+        work.data_ptr(), work[3 * kd:].data_ptr(),
+        bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16), *tile,
+        _stream(u.device))
     if err:
         raise RuntimeError(f"selective_scan_fused_bwd kernel launch failed: cudaError {err}")
     selective_scan_fused_bwd.launches += 1
-    return (du, ddts, dbs.to(bs.dtype), dcs.to(cs.dtype), dparams[0], dparams[1],
-            dparams[2])
+    return (du, ddts, dbs, dcs, work[:kd], work[kd:2 * kd], work[2 * kd:3 * kd])
 
 
 class _FusedScan(torch.autograd.Function):
