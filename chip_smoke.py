@@ -13,10 +13,13 @@ raising on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the flagship 48 kHz forward (batch 1; the fused scan also at
    batch 8, the largest segment bucket) and train step (batch 4) give it:
-   the fused forward and backward, the recurrence forward and reverse, with
+   the fused forward (y, and its chunk states H0 against their plain
+   version) and backward, the recurrence forward and reverse, with
    CUDA-event times beside the memory bound and device time by pass, under
-   the exact kernel names each wrapper module exports. The backward also
-   runs twice for bitwise-equal outputs, and is timed with a cold L2.
+   the exact kernel names each wrapper module exports. Both fused kernels
+   run twice on the same inputs: the backward must give bitwise-equal
+   outputs, the forward says whether it did. The backward is also timed
+   with a cold L2.
 4. model: one flagship segment in fp32 through the generator with the
    kernels, and again with the scan routed to the plain versions.
 5. train gradient: the fp32 flagship generator loss (STFT + MPD, batch 1)
@@ -55,6 +58,7 @@ from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
 from vm_asr_tpu_torch.models import SS2D, get_discriminators, get_generator, set_scan_impl
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
 from vm_asr_tpu_torch.ops import (
+    fused_chunk_states_plain,
     linear_recurrence,
     linear_recurrence_plain,
     linear_recurrence_reverse,
@@ -259,6 +263,8 @@ def device_split(fn, kernels, n: int = 10, tries: int = 3):
     for _ in range(tries):
         events = device_kernels(fn, n)
         calls, passes = by_pass(events, kernels)
+        if calls and calls > n:  # every pass, the forward's one kernel too, runs once per call
+            raise AssertionError(f"{calls} launches of each pass in {n} calls")
         if calls:
             return busy_us(events) / calls / 1e3, passes
     return None, None
@@ -267,8 +273,9 @@ def device_split(fn, kernels, n: int = 10, tries: int = 3):
 def by_wrapper(events):
     """Device ms and calls of each wrapper's kernels among ``events``, by the
     exact names each wrapper module exports. The chunk-carry kernel, shared
-    by all four, goes to the wrapper whose fold ran just before it on the
-    stream; a call is counted at its fold."""
+    by the backward and the recurrence, goes to the wrapper whose fold ran
+    just before it on the stream; a call is counted at its wrapper's first
+    pass (the forward's one kernel, the others' fold)."""
     owner = {name: w for w, kernels in KERNEL_NAMES.items()
              for names in kernels.values() for name in names if name != CARRY_KERNEL}
     ms, calls, last = Counter(), Counter(), None
@@ -281,7 +288,7 @@ def by_wrapper(events):
         last = owner.get(name)
         if last is not None:
             ms[last] += (e_ - s_) / 1e3
-            calls[last] += name in KERNEL_NAMES[last]["fold"]
+            calls[last] += name in next(iter(KERNEL_NAMES[last].values()))
     return ms, calls
 
 
@@ -350,18 +357,30 @@ def fused_inputs(batch, l, kd, dtype, gen):
 
 
 def check_fused(batch, l, kd, dtype, gen):
+    """The forward kernel's y against the plain forward, its H0 against the
+    plain chunk states, and a second call against the first, bit for bit:
+    the look-back composes whichever chunk states it finds first, so the
+    kernel need not repeat its last bits (csrc/fused_scan.cu)."""
     args, _ = fused_inputs(batch, l, kd, dtype, gen)
     u = args[0]
-    y = selective_scan_fused(*args)
+    y, h0, chunk = selective_scan_fused_fwd(*args)
+    y2, h0_2, _ = selective_scan_fused_fwd(*args)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-    err = check_close(f"fused {(batch, l, kd)} {dtype}", y, selective_scan_fused_plain(*args), tol)
+    name = f"fused {(batch, l, kd)} {dtype}"
+    err = check_close(name, y, selective_scan_fused_plain(*args), tol)
+    # H0 is fp32 in both IO dtypes: both sides compute it in fp32 from the
+    # same inputs, associating the recurrence differently.
+    h0_err = check_close(f"{name} H0", h0, fused_chunk_states_plain(*args, chunk), FP32_TOL)
+    repeatable = torch.equal(y, y2) and torch.equal(h0, h0_2)
     size = u.element_size()
-    nbytes = (3 * batch * l * kd + 2 * batch * l * K) * size + 3 * kd * 4
+    # u, dts read and y written; B, C read; A, bias, D_skip read; H0 written.
+    nbytes = (3 * batch * l * kd + 2 * batch * l * K) * size + 3 * kd * 4 + h0.numel() * 4
     bms, by = bound_ms(nbytes, FUSED_OPS * batch * l * kd)
     dev, passes = device_split(lambda: selective_scan_fused(*args), FWD_KERNELS)
     return dict(kernel="selective_scan_fused", shape=[batch, l, kd], dtype=str(dtype),
-                max_abs_err=err, tol=tol, bytes=nbytes,
+                chunk=chunk, max_abs_err=err, tol=tol, h0_max_abs_err=h0_err,
+                repeatable=repeatable, bytes=nbytes,
                 ms=cuda_ms(lambda: selective_scan_fused(*args)), device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: selective_scan_fused_plain(*args), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
@@ -538,6 +557,14 @@ def main() -> int:
         for (l, kd) in FUSED_CALLS:
             for dtype in (torch.bfloat16, torch.float32):
                 checks.append(check_fused(batch, l, kd, dtype, gen))
+    # The forward off the main path: L no multiple of the chunk, D = 48 (the
+    # dims-24 config's first stage) and D = 33 (K·D = 132, no multiple of 32:
+    # the kernel's instance for any group, staging by plain loads, and at
+    # this L chunks of 64 steps that a thread walks in four sub-tiles,
+    # staged again for the re-walk).
+    for shape in ((2, 1000, 128), (4, 16384, 192), (4, 16384, 132)):
+        for dtype in (torch.bfloat16, torch.float32):
+            checks.append(check_fused(*shape, dtype, gen))
     for (l, kd) in FUSED_CALLS:
         for dtype in (torch.bfloat16, torch.float32):
             checks.append(check_fused_bwd(TRAIN_BATCH, l, kd, dtype, gen))
@@ -564,6 +591,9 @@ def main() -> int:
         passes = "not measured" if c["passes"] is None else \
             ", ".join(f"{p} {t:.4f}" for p, t in c["passes"].items())
         extra = f"; cold L2 {c['cold_ms']:.4f} ms; bitwise repeatable" if "cold_ms" in c else ""
+        if "repeatable" in c:
+            extra = (f"; H0 max|err| {c['h0_max_abs_err']:.3e} (tol {FP32_TOL}); two calls "
+                     f"{'bitwise equal' if c['repeatable'] else 'differ in their last bits'}")
         print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]}: max|err| "
               f"{c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms "
               f"(device {fmt_ms(c['device_ms'])}: {passes}){extra}, plain "
@@ -851,10 +881,11 @@ def main() -> int:
                            top_ops=ops)
     print(f"trained in {time.perf_counter() - t0:.1f} s")
 
-    def per_train_step(name, calls, dtype):
-        """Sums over one batch-4 train step's calls of the per-shape rows."""
+    def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
+        """Sums over one train step's calls (batch 4), or one served
+        forward's (batch 1), of the per-shape rows."""
         rows = {tuple(c["shape"][1:]): c for c in checks if c["kernel"] == name
-                and c["shape"][0] == TRAIN_BATCH and c["dtype"] == dtype}
+                and c["shape"][0] == batch and c["dtype"] == dtype}
         out = {key: sum(n * rows[s][key] for s, n in calls.items())
                for key in ("ms", "plain_ms", "bound_ms")}
         dev = [rows[s]["device_ms"] for s in calls]
@@ -886,11 +917,25 @@ def main() -> int:
           f"back to back {fmt_ms(bwd_step['device_ms'])} device, {bwd_step['ms']:.4f} ms "
           f"wrapper; cold L2 {bwd_cold:.4f} ms; bound {bwd_step['bound_ms']:.4f} ms")
 
+    fwd_step = per_train_step("selective_scan_fused", FUSED_CALLS, "torch.bfloat16")
+    fwd_serve = per_train_step("selective_scan_fused", FUSED_CALLS, "torch.bfloat16", batch=1)
+    fwd_rows = [c for c in checks if c["kernel"] == "selective_scan_fused"]
+    print(f"fused forward per train step: in the profiled step "
+          f"{fmt_ms(in_step['selective_scan_fused'] if events else None)} device; "
+          f"back to back {fmt_ms(fwd_step['device_ms'])} device, {fwd_step['ms']:.4f} ms "
+          f"wrapper; bound {fwd_step['bound_ms']:.4f} ms. Per batch-1 forward: "
+          f"{fmt_ms(fwd_serve['device_ms'])} device, {fwd_serve['ms']:.4f} ms wrapper, bound "
+          f"{fwd_serve['bound_ms']:.4f} ms. Two calls bitwise equal at "
+          f"{sum(c['repeatable'] for c in fwd_rows)} of {len(fwd_rows)} shapes")
+
     kernels = [
         entry("selective_scan_fused", "vm_asr_tpu_torch/csrc/fused_scan.cu",
               "vm_asr_tpu/ops/selective_scan_fused.py:141",
               [("selective_scan_fused", FUSED_CALLS, "torch.bfloat16")],
-              serve_launches=serve_launches["selective_scan_fused"]),
+              serve_launches=serve_launches["selective_scan_fused"],
+              serve_forward_device_ms=fwd_serve["device_ms"],
+              serve_forward_bound_ms=fwd_serve["bound_ms"],
+              bitwise_repeatable=all(c["repeatable"] for c in fwd_rows)),
         entry("selective_scan_fused_bwd", "vm_asr_tpu_torch/csrc/fused_scan_bwd.cu",
               "vm_asr_tpu/ops/selective_scan_fused.py:367",
               [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")], cold_ms=bwd_cold),

@@ -11,6 +11,7 @@ from .linear_recurrence import (
 )
 from .scan_api import selective_scan
 from .selective_scan_fused import (
+    fused_chunk_states_plain,
     selective_scan_fused,
     selective_scan_fused_bwd,
     selective_scan_fused_bwd_plain,
@@ -22,6 +23,7 @@ from .selective_scan_ref import linear_recurrence_ref, selective_scan_ref, softp
 __all__ = [
     "cross_merge",
     "cross_scan",
+    "fused_chunk_states_plain",
     "linear_recurrence",
     "linear_recurrence_plain",
     "linear_recurrence_ref",

@@ -9,12 +9,12 @@ with channel q = k·D + d and B, C given per direction k.
 ``selective_scan_fused`` is a ``torch.autograd.Function`` (the JAX package's
 ``custom_vjp``). For CUDA tensors its forward launches the kernel in
 ``csrc/fused_scan.cu`` (the counterpart of the TPU kernel
-``_fused_fwd_pallas``) and keeps the chunk-entry states ``H0`` and the chunk
-length; its backward launches the kernel in ``csrc/fused_scan_bwd.cu`` (the
-counterpart of ``_fused_bwd_pallas``), which rebuilds h from them. For CPU
-tensors both directions run their plain versions, and the plain backward
-ignores ``H0``. Each launch adds one to ``selective_scan_fused.launches`` or
-``selective_scan_fused_bwd.launches``.
+``_fused_fwd_pallas``, one launch per call) and keeps the chunk-entry states
+``H0`` and the chunk length; its backward launches the kernel in
+``csrc/fused_scan_bwd.cu`` (the counterpart of ``_fused_bwd_pallas``), which
+rebuilds h from them. For CPU tensors both directions run their plain
+versions, and the plain backward ignores ``H0``. Each launch adds one to
+``selective_scan_fused.launches`` or ``selective_scan_fused_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -26,23 +26,22 @@ from typing import NamedTuple
 import torch
 
 from .build import load
-from .linear_recurrence import CARRY_KERNEL, chunk_length
+from .linear_recurrence import _MAX_CHUNK, _MIN_CHUNK, CARRY_KERNEL, chunk_length
 from .selective_scan_ref import linear_recurrence_ref, softplus
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 # The device kernels one launch of each wrapper runs, by pass, under the
 # names torch.profiler gives them (demangled), for bf16 and fp32 IO. The
-# backward's fold takes two bf16 channels per 4-byte load where the rows
-# allow, else one channel per thread.
+# forward is one kernel, compiled for 32-channel groups and for any group,
+# and needs nothing to initialise it (its look-back words carry a per-call
+# epoch). The backward's fold takes two bf16 channels per 4-byte load where
+# the rows allow, else one channel per thread.
 _NS = "vmasr::(anonymous namespace)::"
 _TYPES = ("__nv_bfloat16", "float")
 FWD_KERNELS = {
-    "fold": tuple(f"void {_NS}fused_chunk_kernel<{t}, false>({_NS}FusedArgs, float*, float*, "
-                  "float const*)" for t in _TYPES),
-    "carry": (CARRY_KERNEL,),
-    "chunk": tuple(f"void {_NS}fused_chunk_kernel<{t}, true>({_NS}FusedArgs, float*, float*, "
-                   "float const*)" for t in _TYPES),
+    "scan": tuple(f"void {_NS}fused_fwd_kernel<{t}, {g}>({_NS}FwdArgs, {_NS}FwdTile, "
+                  f"{_NS}LookBack)" for t in _TYPES for g in (32, 0)),
 }
 BWD_KERNELS = {
     "fold": tuple(f"void {_NS}bwd_fold_kernel<{t}, {v}>({_NS}BwdArgs, float*, float*)"
@@ -54,20 +53,37 @@ BWD_KERNELS = {
 }
 
 
+def _plain_states(u, dts, bs, a_neg, dt_bias, k_group: int):
+    """h of every step and u in the plain versions' maths dtype (fp32, or
+    fp64 for fp64 inputs)."""
+    d_inner = u.shape[-1] // k_group
+    uf, dts, bs, a_neg, dt_bias = (t.to(torch.promote_types(u.dtype, torch.float32))
+                                   for t in (u, dts, bs, a_neg, dt_bias))
+    dt = softplus(dts + dt_bias)
+    a = torch.exp(dt * a_neg)
+    return linear_recurrence_ref(a, (dt * uf) * bs.repeat_interleave(d_inner, dim=-1),
+                                 dim=-2), uf
+
+
 def selective_scan_fused_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip,
                                k_group: int) -> torch.Tensor:
     """The forward kernel's plain version: the same fp32 maths in torch ops
     (fp64 maths for fp64 inputs)."""
-    d_inner = u.shape[-1] // k_group
-    uf, dts, bs, cs, a_neg, dt_bias, d_skip = (
-        t.to(torch.promote_types(u.dtype, torch.float32))
-        for t in (u, dts, bs, cs, a_neg, dt_bias, d_skip))
-    dt = softplus(dts + dt_bias)
-    a = torch.exp(dt * a_neg)
-    b_lanes = bs.repeat_interleave(d_inner, dim=-1)
-    c_lanes = cs.repeat_interleave(d_inner, dim=-1)
-    h = linear_recurrence_ref(a, (dt * uf) * b_lanes, dim=-2)
-    return (c_lanes * h + d_skip * uf).to(u.dtype)
+    h, uf = _plain_states(u, dts, bs, a_neg, dt_bias, k_group)
+    c_lanes = cs.to(h.dtype).repeat_interleave(u.shape[-1] // k_group, dim=-1)
+    return (c_lanes * h + d_skip.to(h.dtype) * uf).to(u.dtype)
+
+
+def fused_chunk_states_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int,
+                             chunk: int) -> torch.Tensor:
+    """The plain version of the forward kernel's H0: the state entering each
+    L-chunk of ``chunk`` steps, (B, ceil(L / chunk), K·D) in fp32 (fp64 for
+    fp64 inputs); 0 for the first chunk. ``cs`` and ``d_skip`` take no part
+    in it; they are taken so that the call matches the kernel's."""
+    h, _ = _plain_states(u, dts, bs, a_neg, dt_bias, k_group)
+    n_chunks = -(-u.shape[1] // chunk)
+    return torch.cat([torch.zeros_like(h[:, :1]), h[:, chunk - 1::chunk][:, :n_chunks - 1]],
+                     dim=1)
 
 
 def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
@@ -104,9 +120,11 @@ def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
             (da * a * dt).sum((0, 1)), ddts.sum((0, 1)), (dyf * uf).sum((0, 1)))
 
 
+@functools.cache
 def _fwd_kernel():
     fn = load("fused_scan.cu").vmasr_fused_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_uint32]
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,6 +151,10 @@ _MAX_TILE_THREADS = 512
 _BATCH = 4              # the kernel's steps per batch (kBatch)
 
 
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 class TileLayout(NamedTuple):
     channels: int    # per CTA: a whole number of directions
     threads: int     # per CTA: one per channel, rounded up to a warp
@@ -146,10 +168,8 @@ def bwd_tile_smem(channels: int, steps: int, k_group: int, itemsize: int) -> int
     dt, a, sigmoid in fp32 for ``channels`` × (``rows`` + 1), and the staging
     buffer of u, dts, dy (``rows`` × ``channels``) and B, C (``rows`` ×
     ``k_group``) in the IO dtype, each array rounded up to 16 bytes."""
-    def r16(n):
-        return -(-n // 16) * 16
     rows = -(-steps // _BATCH) * _BATCH
-    buf = 3 * r16(rows * channels * itemsize) + 2 * r16(rows * k_group * itemsize)
+    buf = 3 * _r16(rows * channels * itemsize) + 2 * _r16(rows * k_group * itemsize)
     return 16 * channels * (rows + 1) + buf
 
 
@@ -182,6 +202,71 @@ def bwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> TileLay
     return TileLayout(channels, threads, steps, smem)
 
 
+# The forward kernel (csrc/fused_scan.cu) walks tiles of (row, L-tile of
+# whole chunks, channel group), one thread per (16-step segment of a chunk,
+# channel), staged in shared memory; a thread keeps a and dt·u·B of its
+# segment's steps in registers. 32-channel groups were the fastest on an
+# H100 (more chains of tiles, shorter look-backs), and the kernel has an
+# instance compiled for them.
+_FWD_GROUP = 32           # channels per CTA where K·D is a multiple of it
+_FWD_MAX_THREADS = 256    # the kernel's __launch_bounds__
+_FWD_STEPS = 16           # the kernel's kSteps
+
+
+class FwdTileLayout(NamedTuple):
+    channels: int    # per CTA: a divisor of K·D
+    chunks: int      # per CTA: the L-tile, in whole chunks
+    splits: int      # segments per chunk, each a whole number of 16 steps
+    threads: int     # channels × chunks × splits, rounded up to a warp
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def fwd_tile_smem(channels: int, segments: int, k_group: int, itemsize: int) -> int:
+    """Shared memory of one forward CTA (csrc/fused_scan.cu:smem_bytes): two
+    buffers, each of u and dts for ``segments`` × 16 rows of ``channels`` and
+    B and C for as many rows of ``k_group``, in the IO dtype, each array
+    rounded up to 16 bytes."""
+    rows = segments * _FWD_STEPS
+    return 2 * (2 * _r16(rows * channels * itemsize) + 2 * _r16(rows * k_group * itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> FwdTileLayout:
+    """Geometry of the forward kernel for (B, L, ``kd``) inputs of
+    ``itemsize`` bytes in L-chunks of ``chunk`` steps (16 to 1024, a multiple
+    of 16). A tile takes 32 channels where K·D is a multiple of 32 (the
+    flagship's stages), else the largest divisor of K·D up to 256; each chunk
+    goes to as many 16-step segments (threads per channel) as 256 threads
+    hold, so that at 32 channels a thread walks one 16-step sub-tile of
+    every chunk of up to 256 steps; and a tile takes as many chunks as fit
+    in 256 threads."""
+    if k_group <= 0 or kd % k_group:
+        raise ValueError(f"K·D = {kd} is not a multiple of K = {k_group}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"the forward kernel takes bf16 or fp32, not {itemsize}-byte items")
+    if not (_MIN_CHUNK <= chunk <= _MAX_CHUNK and chunk % _FWD_STEPS == 0):
+        raise ValueError(f"the forward kernel takes chunks of {_MIN_CHUNK} to {_MAX_CHUNK} "
+                         f"steps in multiples of {_FWD_STEPS}, got {chunk}")
+    channels = _FWD_GROUP if kd % _FWD_GROUP == 0 else max(
+        g for g in range(1, min(kd, _FWD_MAX_THREADS) + 1) if kd % g == 0)
+    sub_tiles = chunk // _FWD_STEPS
+    cap = max(1, _FWD_MAX_THREADS // channels)
+    splits = max(s for s in range(1, min(sub_tiles, cap) + 1) if sub_tiles % s == 0)
+    chunks = max(1, _FWD_MAX_THREADS // (channels * splits))
+    threads = -(-channels * chunks * splits // 32) * 32
+    return FwdTileLayout(channels, chunks, splits, threads,
+                         fwd_tile_smem(channels, chunks * splits, k_group, itemsize))
+
+
+def fwd_workspace_bytes(bsz: int, l: int, kd: int, chunk: int, tile: FwdTileLayout) -> int:
+    """Bytes of the forward kernel's look-back workspace: per (row, channel
+    group, L-tile) and channel, the tile's (P, S) and its inclusive prefix,
+    8 bytes each (the value and its tag)."""
+    n_chunks = -(-l // chunk)
+    slots = bsz * (kd // tile.channels) * -(-n_chunks // tile.chunks)
+    return 24 * slots * tile.channels
+
+
 def _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
     tensors = (u, dts, bs, cs, a_neg, dt_bias, d_skip)
     if any(t.device != u.device for t in tensors):
@@ -211,6 +296,22 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# The look-back workspace of each (device, stream): [bytes (uint8), the last
+# epoch]. The kernel tells this call's flags from earlier ones by the epoch
+# (1 to 2^30 - 1), so the workspace is zeroed only when it is made.
+_EPOCHS = 1 << 30
+_workspaces: dict = {}
+
+
+def _lookback_workspace(device, stream: int, nbytes: int):
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < nbytes or ws[1] + 1 >= _EPOCHS:
+        ws = _workspaces[key] = [torch.zeros(nbytes, dtype=torch.uint8, device=device), 0]
+    ws[1] += 1
+    return ws[0], ws[1]
+
+
 def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int):
     """Launch the forward kernel on CUDA tensors. Returns (y, H0, chunk): y
     (B, L, K·D) in u's dtype, H0 (B, n_chunks, K·D) fp32 the state entering
@@ -220,14 +321,17 @@ def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: in
     _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
     bsz, l, kd = u.shape
     chunk = chunk_length(bsz, l, kd)
-    n_chunks = -(-l // chunk)
+    tile = fwd_tile_layout(kd, k_group, chunk, u.element_size())
     y = torch.empty_like(u)
-    p, s, h0 = torch.empty((3, bsz, n_chunks, kd), dtype=torch.float32, device=u.device)
+    h0 = torch.empty((bsz, -(-l // chunk), kd), dtype=torch.float32, device=u.device)
+    stream = _stream(u.device)
+    work, epoch = _lookback_workspace(u.device, stream,
+                                      fwd_workspace_bytes(bsz, l, kd, chunk, tile))
     err = _fwd_kernel()(u.data_ptr(), dts.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                         a_neg.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(),
-                        y.data_ptr(), p.data_ptr(), s.data_ptr(), h0.data_ptr(),
+                        y.data_ptr(), h0.data_ptr(), work.data_ptr(), work.numel(), epoch,
                         bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16),
-                        _stream(u.device))
+                        *tile, stream)
     if err:
         raise RuntimeError(f"selective_scan_fused kernel launch failed: cudaError {err}")
     selective_scan_fused.launches += 1
