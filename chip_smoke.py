@@ -11,15 +11,21 @@ raising on failure:
 2. build: compile the CUDA kernels from vm_asr_tpu_torch/csrc with nvcc and
    print what ptxas made of each kernel (registers, shared memory, spills).
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the flagship 48 kHz forward (batch 1; the fused scan also at
-   batch 8, the largest segment bucket) and train step (batch 4) give it:
-   the fused forward (y, and its chunk states H0 against their plain
-   version) and backward, the recurrence forward and reverse, with
-   CUDA-event times beside the memory bound and device time by pass, under
-   the exact kernel names each wrapper module exports. Both fused kernels
-   run twice on the same inputs: the backward must give bitwise-equal
-   outputs, the forward says whether it did. The backward is also timed
-   with a cold L2.
+   every shape the flagship 48 kHz forward (batch 1, and batch 8, the
+   largest segment bucket) and train step (batch 4) give it, and at shapes
+   off the main path: the fused forward (y, and its chunk states H0 against
+   their plain version) and backward, the recurrence forward and reverse,
+   with CUDA-event times beside the memory bound and device time by pass,
+   under the exact kernel names each wrapper module exports. Every kernel
+   runs twice on the same inputs and must give bitwise-equal outputs; the
+   three one-launch scans (fused forward, recurrence forward and reverse)
+   also run on a grid capped to a few CTAs, so that their tiles arrive in
+   another order, and must give the same bits again. One recurrence call
+   must be one kernel on the device. The backward is also timed with a
+   cold L2.
+3b. look-back window: the three one-launch scans' device time per train
+   step and per batch-1 forward with the look-back's checkpoint spacing W
+   at 8, 16, 32 and 64 (each wrapper's own W is the one it ships).
 4. model: one flagship segment in fp32 through the generator with the
    kernels, and again with the scan routed to the plain versions.
 5. train gradient: the fp32 flagship generator loss (STFT + MPD, batch 1)
@@ -71,11 +77,12 @@ from vm_asr_tpu_torch.ops import (
 )
 from vm_asr_tpu_torch.ops.build import SOURCES, build, ptxas_info
 from vm_asr_tpu_torch.ops.linear_recurrence import (
-    CARRY_KERNEL,
     LR_KERNELS,
     LR_REVERSE_KERNELS,
+    linear_recurrence_fwd,
+    lr_tile_layout,
 )
-from vm_asr_tpu_torch.ops.selective_scan_fused import BWD_KERNELS, FWD_KERNELS
+from vm_asr_tpu_torch.ops.selective_scan_fused import BWD_KERNELS, FWD_KERNELS, fwd_tile_layout
 from vm_asr_tpu_torch.train import (
     DiscState,
     GenState,
@@ -156,6 +163,12 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz
 # Each wrapper's device kernels by pass, as its module exports them.
 KERNEL_NAMES = {"selective_scan_fused": FWD_KERNELS, "selective_scan_fused_bwd": BWD_KERNELS,
                 "linear_recurrence": LR_KERNELS, "linear_recurrence_reverse": LR_REVERSE_KERNELS}
+# The one-launch scans again on a grid of this many CTAs (a C-side cap,
+# the wrappers' max_ctas): their tiles then arrive in another order, and
+# the result must not change by a bit.
+CAPPED_CTAS = 5
+# The look-back's checkpoint spacings timed in phase 3b.
+WINDOWS = (8, 16, 32, 64)
 
 
 def fmt_ms(ms) -> str:
@@ -272,23 +285,20 @@ def device_split(fn, kernels, n: int = 10, tries: int = 3):
 
 def by_wrapper(events):
     """Device ms and calls of each wrapper's kernels among ``events``, by the
-    exact names each wrapper module exports. The chunk-carry kernel, shared
-    by the backward and the recurrence, goes to the wrapper whose fold ran
-    just before it on the stream; a call is counted at its wrapper's first
-    pass (the forward's one kernel, the others' fold)."""
-    owner = {name: w for w, kernels in KERNEL_NAMES.items()
-             for names in kernels.values() for name in names if name != CARRY_KERNEL}
-    ms, calls, last = Counter(), Counter(), None
-    for name, s_, e_ in sorted(events, key=lambda ev: ev[1]):
-        if name == CARRY_KERNEL:
-            if last is None:
-                raise AssertionError("a chunk-carry kernel ran after no scan wrapper's fold")
-            ms[last] += (e_ - s_) / 1e3
-            continue
-        last = owner.get(name)
-        if last is not None:
-            ms[last] += (e_ - s_) / 1e3
-            calls[last] += name in next(iter(KERNEL_NAMES[last].values()))
+    exact names each wrapper module exports (no kernel belongs to two
+    wrappers); a call is counted at its wrapper's first pass (the one-launch
+    scans' one kernel, the backward's fold)."""
+    owner = {}
+    for w, kernels in KERNEL_NAMES.items():
+        for name in (n for names in kernels.values() for n in names):
+            if owner.setdefault(name, w) != w:
+                raise AssertionError(f"{name!r} is exported by {owner[name]} and {w}")
+    ms, calls = Counter(), Counter()
+    for name, s_, e_ in events:
+        w = owner.get(name)
+        if w is not None:
+            ms[w] += (e_ - s_) / 1e3
+            calls[w] += name in next(iter(KERNEL_NAMES[w].values()))
     return ms, calls
 
 
@@ -356,23 +366,33 @@ def fused_inputs(batch, l, kd, dtype, gen):
     return (u, dts, bs, cs, a, bias, dsk, K), dy
 
 
+def check_same(name, *runs):
+    """Every run's tensors equal the first run's, bit for bit."""
+    for i, run in enumerate(runs[1:], 1):
+        for j, (x, y) in enumerate(zip(runs[0], run)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: output {j} of run {i} differs from run 0 "
+                                     f"(max |diff| {(x.float() - y.float()).abs().max():.3e})")
+
+
 def check_fused(batch, l, kd, dtype, gen):
     """The forward kernel's y against the plain forward, its H0 against the
-    plain chunk states, and a second call against the first, bit for bit:
-    the look-back composes whichever chunk states it finds first, so the
-    kernel need not repeat its last bits (csrc/fused_scan.cu)."""
+    plain chunk states, and a second call and a call on a capped grid
+    against the first, bit for bit (the look-back's states are one fixed
+    expression of the tiles' aggregates, csrc/scan_common.cuh)."""
     args, _ = fused_inputs(batch, l, kd, dtype, gen)
     u = args[0]
     y, h0, chunk = selective_scan_fused_fwd(*args)
     y2, h0_2, _ = selective_scan_fused_fwd(*args)
+    y3, h0_3, _ = selective_scan_fused_fwd(*args, max_ctas=CAPPED_CTAS)
     torch.cuda.synchronize()
+    check_same(f"fused {(batch, l, kd)} {dtype}", (y, h0), (y2, h0_2), (y3, h0_3))
     tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     name = f"fused {(batch, l, kd)} {dtype}"
     err = check_close(name, y, selective_scan_fused_plain(*args), tol)
     # H0 is fp32 in both IO dtypes: both sides compute it in fp32 from the
     # same inputs, associating the recurrence differently.
     h0_err = check_close(f"{name} H0", h0, fused_chunk_states_plain(*args, chunk), FP32_TOL)
-    repeatable = torch.equal(y, y2) and torch.equal(h0, h0_2)
     size = u.element_size()
     # u, dts read and y written; B, C read; A, bias, D_skip read; H0 written.
     nbytes = (3 * batch * l * kd + 2 * batch * l * K) * size + 3 * kd * 4 + h0.numel() * 4
@@ -380,7 +400,7 @@ def check_fused(batch, l, kd, dtype, gen):
     dev, passes = device_split(lambda: selective_scan_fused(*args), FWD_KERNELS)
     return dict(kernel="selective_scan_fused", shape=[batch, l, kd], dtype=str(dtype),
                 chunk=chunk, max_abs_err=err, tol=tol, h0_max_abs_err=h0_err,
-                repeatable=repeatable, bytes=nbytes,
+                window=fwd_tile_layout(kd, K, chunk, size).window, bytes=nbytes,
                 ms=cuda_ms(lambda: selective_scan_fused(*args)), device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: selective_scan_fused_plain(*args), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
@@ -421,50 +441,101 @@ def check_fused_bwd(batch, l, kd, dtype, gen):
                 plain_ms=cuda_ms(plain, reps=3, per=3), bound_ms=bms, bound_by=by)
 
 
-def check_lr_reverse(rows, l, d, gen):
-    g = torch.Generator(device="cuda").manual_seed(rows * 1_000_033 + l * 1013 + d)
-    _, bias, _ = init_ranges(d, gen)
-    dt = torch.nn.functional.softplus(
-        0.5 * torch.randn(rows, l, d, device="cuda", generator=g) + bias)
-    a = torch.exp(-dt)
-    h = linear_recurrence_plain(a, dt * torch.randn(rows, l, d, device="cuda", generator=g))
-    grad = torch.randn(rows, l, d, device="cuda", generator=g)
-    got = linear_recurrence_reverse(a, h, grad)
-    ref = linear_recurrence_reverse_plain(a, h, grad)
-    torch.cuda.synchronize()
-    err = max(check_close(f"linear_recurrence reverse {name} {(rows, l, d)}", x, y, BWD_FP32_TOL)
-              for name, x, y in zip(("da", "db"), got, ref))
-    nbytes = 5 * rows * l * d * 4
-    bms, by = bound_ms(nbytes, LR_REV_OPS * rows * l * d)
-    dev, passes = device_split(lambda: linear_recurrence_reverse(a, h, grad), LR_REVERSE_KERNELS)
-    return dict(kernel="linear_recurrence_reverse", shape=[rows, l, d], dtype="torch.float32",
-                max_abs_err=err, tol=BWD_FP32_TOL, bytes=nbytes,
-                ms=cuda_ms(lambda: linear_recurrence_reverse(a, h, grad)),
-                device_ms=dev, passes=passes,
-                plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
-                                 reps=3, per=3),
-                bound_ms=bms, bound_by=by)
-
-
-def check_lr(rows, l, d, gen):
-    g = torch.Generator(device="cuda").manual_seed(rows * 1_000_003 + l * 1009 + d)
+def lr_inputs(rows, l, d, gen, seed):
+    """a = exp(-dt) and b = dt·x with dt as the model's softplus of its
+    dt_bias range, the forward's h from the plain version, and a gradient."""
+    g = torch.Generator(device="cuda").manual_seed(rows * seed + l * 1009 + d)
     _, bias, _ = init_ranges(d, gen)
     dt = torch.nn.functional.softplus(
         0.5 * torch.randn(rows, l, d, device="cuda", generator=g) + bias)
     a = torch.exp(-dt)
     b = dt * torch.randn(rows, l, d, device="cuda", generator=g)
+    return a, b, linear_recurrence_plain(a, b), torch.randn(rows, l, d, device="cuda", generator=g)
+
+
+def one_kernel(name, fn, kernels):
+    """The device events of one call of ``fn`` are one kernel of ``kernels``."""
+    events = device_kernels(fn)
+    names = [e[0] for e in events]
+    if len(names) != 1 or names[0] not in kernels["scan"]:
+        raise AssertionError(f"{name}: one call ran {names} on the device, not one kernel")
+
+
+def check_lr(rows, l, d, gen):
+    """The forward kernel's h against the plain version, and a second call
+    and a call on a capped grid against the first, bit for bit."""
+    a, b, ref, _ = lr_inputs(rows, l, d, gen, 1_000_003)
     h = linear_recurrence(a, b)
+    runs = [(h,), (linear_recurrence(a, b),), (linear_recurrence_fwd(a, b, max_ctas=CAPPED_CTAS),)]
     torch.cuda.synchronize()
-    err = check_close(f"linear_recurrence {(rows, l, d)}", h, linear_recurrence_plain(a, b),
-                      FP32_TOL)
+    name = f"linear_recurrence {(rows, l, d)}"
+    check_same(name, *runs)
+    err = check_close(name, h, ref, FP32_TOL)
+    one_kernel(name, lambda: linear_recurrence(a, b), LR_KERNELS)
     nbytes = 3 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_OPS * rows * l * d)
     dev, passes = device_split(lambda: linear_recurrence(a, b), LR_KERNELS)
     return dict(kernel="linear_recurrence", shape=[rows, l, d], dtype="torch.float32",
-                max_abs_err=err, tol=FP32_TOL, bytes=nbytes,
-                ms=cuda_ms(lambda: linear_recurrence(a, b)), device_ms=dev, passes=passes,
+                max_abs_err=err, tol=FP32_TOL, window=lr_tile_layout(rows, l, d).window,
+                bytes=nbytes, ms=cuda_ms(lambda: linear_recurrence(a, b)), device_ms=dev,
+                passes=passes,
                 plain_ms=cuda_ms(lambda: linear_recurrence_plain(a, b), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
+
+
+def check_lr_reverse(rows, l, d, gen):
+    """The reverse kernel's (da, db) against the plain version, and a second
+    call and a call on a capped grid against the first, bit for bit."""
+    a, _, h, grad = lr_inputs(rows, l, d, gen, 1_000_033)
+    kernel = lambda: linear_recurrence_reverse(a, h, grad)  # noqa: E731
+    got = kernel()
+    runs = [got, kernel(), linear_recurrence_reverse(a, h, grad, max_ctas=CAPPED_CTAS)]
+    ref = linear_recurrence_reverse_plain(a, h, grad)
+    torch.cuda.synchronize()
+    name = f"linear_recurrence reverse {(rows, l, d)}"
+    check_same(name, *runs)
+    err = max(check_close(f"{name} {n}", x, y, BWD_FP32_TOL)
+              for n, x, y in zip(("da", "db"), got, ref))
+    one_kernel(name, kernel, LR_REVERSE_KERNELS)
+    nbytes = 5 * rows * l * d * 4
+    bms, by = bound_ms(nbytes, LR_REV_OPS * rows * l * d)
+    dev, passes = device_split(kernel, LR_REVERSE_KERNELS)
+    return dict(kernel="linear_recurrence_reverse", shape=[rows, l, d], dtype="torch.float32",
+                max_abs_err=err, tol=BWD_FP32_TOL,
+                window=lr_tile_layout(rows, l, d, True).window, bytes=nbytes,
+                ms=cuda_ms(kernel), device_ms=dev, passes=passes,
+                plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
+                                 reps=3, per=3),
+                bound_ms=bms, bound_by=by)
+
+
+def window_sweep(gen):
+    """Device ms of the one-launch scans by the look-back's checkpoint
+    spacing W: per call at each main-path shape (bf16 for the fused
+    forward), and summed per train step (batch 4) and per batch-1 forward."""
+    out = {}
+    for batch in (TRAIN_BATCH, 1):
+        calls = []
+        for (l, kd), n in FUSED_CALLS.items():
+            args, _ = fused_inputs(batch, l, kd, torch.bfloat16, gen)
+            calls.append(("selective_scan_fused", (batch, l, kd), n, FWD_KERNELS,
+                          lambda w, args=args: selective_scan_fused_fwd(*args, window=w)))
+        for (l, d), n in LR_CALLS.items():
+            a, b, h, grad = lr_inputs(batch, l, d, gen, 1_000_003)
+            calls.append(("linear_recurrence", (batch, l, d), n, LR_KERNELS,
+                          lambda w, a=a, b=b: linear_recurrence_fwd(a, b, window=w)))
+            if batch == TRAIN_BATCH:
+                calls.append(("linear_recurrence_reverse", (batch, l, d), n, LR_REVERSE_KERNELS,
+                              lambda w, a=a, h=h, g=grad: linear_recurrence_reverse(
+                                  a, h, g, window=w)))
+        for w in WINDOWS:
+            for name, shape, n, kernels, fn in calls:
+                dev, _ = device_split(lambda: fn(w), kernels)
+                out[f"{name} {shape} W {w}"] = dev
+                key = f"{name} batch {batch} W {w}"
+                out[key] = None if out.get(key, 0.0) is None or dev is None \
+                    else out.get(key, 0.0) + n * dev
+    return out
 
 
 def flagship_config(amp: bool, gan: bool = False):
@@ -582,18 +653,29 @@ def main() -> int:
     # takes one channel per thread.
     for dtype in (torch.bfloat16, torch.float32):
         checks.append(check_fused_bwd(2, 1000, 132, dtype, gen))
-    for rows in (1, TRAIN_BATCH):
+    for rows in (1, TRAIN_BATCH, 8):
         for (l, d) in LR_CALLS:
             checks.append(check_lr(rows, l, d, gen))
-    for (l, d) in LR_CALLS:
-        checks.append(check_lr_reverse(TRAIN_BATCH, l, d, gen))
+    for rows in (1, TRAIN_BATCH):
+        for (l, d) in LR_CALLS:
+            checks.append(check_lr_reverse(rows, l, d, gen))
+    # The recurrence off the main path: L no multiple of the tile (512 steps
+    # at D = 8, 128 at D = 64) over many tiles; D = 1, 5 and 33 (groups of
+    # that width, staged by plain loads, in the instance for any group).
+    for shape in ((3, 100_003, 8), (2, 70_001, 64), (2, 50_000, 1), (2, 30_001, 5),
+                  (2, 20_001, 33)):
+        checks.append(check_lr(*shape, gen))
+        checks.append(check_lr_reverse(*shape, gen))
     for c in checks:
         passes = "not measured" if c["passes"] is None else \
             ", ".join(f"{p} {t:.4f}" for p, t in c["passes"].items())
-        extra = f"; cold L2 {c['cold_ms']:.4f} ms; bitwise repeatable" if "cold_ms" in c else ""
-        if "repeatable" in c:
-            extra = (f"; H0 max|err| {c['h0_max_abs_err']:.3e} (tol {FP32_TOL}); two calls "
-                     f"{'bitwise equal' if c['repeatable'] else 'differ in their last bits'}")
+        extra = "; bitwise repeatable"
+        if "cold_ms" in c:
+            extra = f"; cold L2 {c['cold_ms']:.4f} ms{extra}"
+        if "window" in c:
+            extra = f"; W {c['window']}{extra}, also on {CAPPED_CTAS} CTAs"
+        if "h0_max_abs_err" in c:
+            extra = f"; H0 max|err| {c['h0_max_abs_err']:.3e} (tol {FP32_TOL}){extra}"
         print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]}: max|err| "
               f"{c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms "
               f"(device {fmt_ms(c['device_ms'])}: {passes}){extra}, plain "
@@ -601,6 +683,13 @@ def main() -> int:
               f"{c['bytes'] / 1e6:.2f} MB)")
     report["kernel_checks"] = checks
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("look-back window: device ms per train step (batch 4) and per batch-1 forward")
+    sweep = window_sweep(gen)
+    for key, ms in sweep.items():
+        print(f"{key}: {fmt_ms(ms)}")
+    report["window_sweep"] = sweep
+    print(f"swept in {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("model: fp32 flagship segment, kernels vs plain scan")
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -917,16 +1006,29 @@ def main() -> int:
           f"back to back {fmt_ms(bwd_step['device_ms'])} device, {bwd_step['ms']:.4f} ms "
           f"wrapper; cold L2 {bwd_cold:.4f} ms; bound {bwd_step['bound_ms']:.4f} ms")
 
-    fwd_step = per_train_step("selective_scan_fused", FUSED_CALLS, "torch.bfloat16")
-    fwd_serve = per_train_step("selective_scan_fused", FUSED_CALLS, "torch.bfloat16", batch=1)
-    fwd_rows = [c for c in checks if c["kernel"] == "selective_scan_fused"]
-    print(f"fused forward per train step: in the profiled step "
-          f"{fmt_ms(in_step['selective_scan_fused'] if events else None)} device; "
-          f"back to back {fmt_ms(fwd_step['device_ms'])} device, {fwd_step['ms']:.4f} ms "
-          f"wrapper; bound {fwd_step['bound_ms']:.4f} ms. Per batch-1 forward: "
-          f"{fmt_ms(fwd_serve['device_ms'])} device, {fwd_serve['ms']:.4f} ms wrapper, bound "
-          f"{fwd_serve['bound_ms']:.4f} ms. Two calls bitwise equal at "
-          f"{sum(c['repeatable'] for c in fwd_rows)} of {len(fwd_rows)} shapes")
+    def per_step_line(title, name, calls, dtype, serve):
+        """Print one one-launch scan's device, wrapper and bound figures per
+        train step and (serve) per batch-1 forward; returns both sums."""
+        step = per_train_step(name, calls, dtype)
+        fwd = per_train_step(name, calls, dtype, batch=1) if serve else None
+        line = (f"{title} per train step: in the profiled step "
+                f"{fmt_ms(in_step[name] if events else None)} device; back to back "
+                f"{fmt_ms(step['device_ms'])} device, {step['ms']:.4f} ms wrapper; bound "
+                f"{step['bound_ms']:.4f} ms")
+        if fwd is not None:
+            line += (f". Per batch-1 forward: {fmt_ms(fwd['device_ms'])} device, "
+                     f"{fwd['ms']:.4f} ms wrapper, bound {fwd['bound_ms']:.4f} ms")
+        print(line)
+        return step, fwd
+
+    _, fwd_serve = per_step_line("fused forward", "selective_scan_fused", FUSED_CALLS,
+                                 "torch.bfloat16", serve=True)
+    _, lr_serve = per_step_line("recurrence forward", "linear_recurrence", LR_CALLS,
+                                "torch.float32", serve=True)
+    per_step_line("recurrence reverse", "linear_recurrence_reverse", LR_CALLS, "torch.float32",
+                  serve=False)
+    repeat = ("bitwise equal on two calls and on a grid of "
+              f"{CAPPED_CTAS} CTAs at every shape checked")
 
     kernels = [
         entry("selective_scan_fused", "vm_asr_tpu_torch/csrc/fused_scan.cu",
@@ -934,17 +1036,20 @@ def main() -> int:
               [("selective_scan_fused", FUSED_CALLS, "torch.bfloat16")],
               serve_launches=serve_launches["selective_scan_fused"],
               serve_forward_device_ms=fwd_serve["device_ms"],
-              serve_forward_bound_ms=fwd_serve["bound_ms"],
-              bitwise_repeatable=all(c["repeatable"] for c in fwd_rows)),
+              serve_forward_bound_ms=fwd_serve["bound_ms"], repeatable=repeat),
         entry("selective_scan_fused_bwd", "vm_asr_tpu_torch/csrc/fused_scan_bwd.cu",
               "vm_asr_tpu/ops/selective_scan_fused.py:367",
-              [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")], cold_ms=bwd_cold),
+              [("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")], cold_ms=bwd_cold,
+              repeatable="bitwise equal on two calls at every shape checked"),
         entry("linear_recurrence", "vm_asr_tpu_torch/csrc/linear_recurrence.cu",
               "vm_asr_tpu/ops/linear_recurrence.py:172",
-              [("linear_recurrence", LR_CALLS, "torch.float32"),
-               ("linear_recurrence_reverse", LR_CALLS, "torch.float32")],
-              reverse_launches=train_launches["linear_recurrence_reverse"],
-              serve_launches=serve_launches["linear_recurrence"]),
+              [("linear_recurrence", LR_CALLS, "torch.float32")],
+              serve_launches=serve_launches["linear_recurrence"],
+              serve_forward_device_ms=lr_serve["device_ms"],
+              serve_forward_bound_ms=lr_serve["bound_ms"], repeatable=repeat),
+        entry("linear_recurrence_reverse", "vm_asr_tpu_torch/csrc/linear_recurrence.cu",
+              "vm_asr_tpu/ops/linear_recurrence.py:241",
+              [("linear_recurrence_reverse", LR_CALLS, "torch.float32")], repeatable=repeat),
     ]
     if any(c["bound_by"] != "bytes" for c in checks):
         raise AssertionError("a kernel check came out operation-bound; update bound_by")

@@ -16,9 +16,10 @@ import jax.numpy as jnp
 
 from vm_asr_tpu.ops.selective_scan_fused import _fused_fwd_pallas
 from vm_asr_tpu_torch.ops import fused_chunk_states_plain
-from vm_asr_tpu_torch.ops.linear_recurrence import chunk_length
+from vm_asr_tpu_torch.ops.lookback import lookback_smem
 from vm_asr_tpu_torch.ops.selective_scan_fused import (
     BLOCK_SMEM_MAX,
+    chunk_length,
     fwd_tile_layout,
     fwd_tile_smem,
     fwd_workspace_bytes,
@@ -75,7 +76,9 @@ def _check_layout(bsz, l, kd, chunk, itemsize):
     segments = tile.chunks * tile.splits
     assert tile.channels * segments <= tile.threads <= 256 and tile.threads % 32 == 0
     assert tile.threads - tile.channels * segments < 32
-    assert tile.smem_bytes == fwd_tile_smem(tile.channels, segments, K, itemsize)
+    # Two staging buffers, then the look-back's words.
+    assert tile.smem_bytes == (fwd_tile_smem(tile.channels, segments, K, itemsize)
+                               + lookback_smem(tile.channels, tile.window))
     assert tile.smem_bytes <= BLOCK_SMEM_MAX
     # The grid, one CTA per look-back slot, and the workspace's slots fit int32.
     n_tiles = -(-(-(-l // chunk)) // tile.chunks)

@@ -29,13 +29,12 @@
 //   2. walks it, each thread down its segment, computing dt and a once per
 //      element and keeping a and dt*u*B in registers, and folds the segment
 //      into an affine step (P, S);
-//   3. composes its segments per channel in order and publishes the tile's
-//      aggregate, looks back over the preceding tiles of the same (b, group)
-//      for the state entering the tile, and publishes the state leaving it
-//      (a decoupled look-back, as in CUB's single-pass scan). Each word is
-//      (tag << 32 | value), stored and loaded as one 64-bit access, so a
-//      reader that sees the tag sees the value: no fences, no flags. A thread
-//      reads four preceding tiles' words per round trip, for its channel;
+//   3. composes its segments per channel in order into the tile's
+//      aggregate and takes the state entering the tile from the
+//      checkpointed look-back of scan_common.cuh over the preceding tiles of
+//      the same (b, group): checkpoints every W = 16 tiles publish the state
+//      leaving them, the other tiles their aggregate, and the CTA reads the
+//      words a tile needs together;
 //   4. gives each thread the state entering its segment, writes H0 at each
 //      chunk's first segment, and re-walks the segment out of registers,
 //      writing y over u in shared memory; the CTA stores y as 16-byte pieces.
@@ -46,23 +45,15 @@
 // (ops/selective_scan_fused.py:fwd_tile_layout), which the CPU tests reach;
 // this side checks it.
 //
-// No deadlock: the grid holds at most as many CTAs as the card runs at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so every CTA is resident;
-// a tile waits only on tiles of lower id, which CTAs that run take earlier
-// in their order, and every tile publishes its aggregate before it waits.
-// This assumes no other kernel holds the card's SMs for good while it runs
-// (the port runs its scans on one stream). The words carry a per-call epoch
-// (the wrapper's counter, in a workspace it keeps per device and stream), so
-// no kernel has to clear them: a word from an earlier call has another epoch
-// and reads as "not yet". One consequence: a CUDA graph that captured a call
-// would replay its epoch, so the kernel cannot be captured as it stands.
+// The look-back's note (scan_common.cuh) says why it cannot deadlock and
+// why no kernel clears its words (they carry a per-call epoch, so a CUDA
+// graph cannot capture the kernel as it stands).
 //
-// Not bitwise repeatable in general: a tile's look-back composes whichever
-// preceding aggregates it finds before an inclusive prefix, which depends on
-// timing, so H0 and y may differ in their last bits between two calls on the
-// same inputs (chip_smoke.py prints, per shape, whether they did). Within one
-// call the backward rebuilds h from this call's H0 with the same
-// instructions, so the two agree.
+// Bitwise repeatable: each state is one fixed expression of the tiles'
+// aggregates, so H0 and y are the same bits on every call and on any grid
+// (chip_smoke.py checks two calls and a grid of five CTAs at every shape).
+// (A decoupled look-back that composes whichever preceding aggregates it
+// finds before an inclusive prefix gives last bits that depend on timing.)
 //
 // What this design does about what held the three-pass version back:
 //   - three launches per call (fold, chunk_carry_kernel, re-run): one, and
@@ -84,9 +75,15 @@
 // a compile-time constant (the walks' shared-memory offsets become
 // immediates, and the kernel, bound by its integer work more than by its
 // loads, ran faster at every shape); persistent CTAs with the next tile's
-// loads in flight (as fast as one CTA per tile, within the spread); a
-// look-back per thread with a window of 4 (a window of 8, and a look-back
-// shared by the CTA's warps, were slower).
+// loads in flight (as fast as one CTA per tile, within the spread).
+// The look-back's W = 16, of 8, 16, 32 and 64 timed in chip_smoke.py on an
+// H100 (700 W), bf16, device ms summed over the flagship's 30 calls: per
+// batch-4 train step 0.568, 0.571, 0.595, 0.619; per batch-1 forward 0.226,
+// 0.222, 0.220, 0.233. Short chains (batch 1) want a larger W, many chains
+// (batch 4) fewer aggregates read; 16 is within 1 % of the best of both.
+// Being repeatable costs about 5 % per train step against the decoupled
+// look-back that stopped at the first inclusive prefix it found (0.544 ms):
+// a tile now reads up to W - 1 aggregates rather than mostly one prefix.
 // Left for later: TMA loads from a producer warp, a look-back that overlaps
 // the next tile's walk, and a device-side epoch that would let a CUDA graph
 // capture the kernel.
@@ -96,8 +93,6 @@
 // The fp32 flagship forward stays within chip_smoke.py's bar of 1e-5 of its
 // scale from the plain scan with them (PERF.md has the reading), so the
 // accurate libm versions were not needed.
-#include <algorithm>
-
 #include "scan_common.cuh"
 
 namespace vmasr {
@@ -106,12 +101,7 @@ namespace {
 constexpr int kSteps = 16;             // steps of one thread's segment (or sub-tile of it)
 constexpr int kMaxTileThreads = 256;   // segments * G threads, rounded up to a warp
 constexpr int kMinTiles = 2;           // CTAs of 256 threads per SM: at most 128 registers
-constexpr int kWindow = 4;             // preceding tiles the look-back reads at once
-constexpr int kMaxBlockSmem = 232448;  // a block's shared memory on an H100
 constexpr int kMaxChunk = 1024;        // the wrapper's largest chunk
-constexpr uint32_t kAggregate = 1;     // word states: the tile's (P, S) is out
-constexpr uint32_t kInclusive = 2;     // the state leaving the tile is out
-constexpr uint32_t kEpochs = 1u << 30; // tag = epoch << 2 | state
 
 struct FwdArgs {
   const void* u;
@@ -135,32 +125,6 @@ struct FwdTile {
   bool vec;
 };
 
-// The look-back's workspace, per slot = (b * n_groups + group) * n_tiles +
-// tile and channel of the group: the tile's aggregate (P, S) and its
-// inclusive prefix, each a 64-bit word of (tag << 32 | the float's bits),
-// stored and loaded whole, so that a reader that sees this call's tag sees
-// the value stored with it. No fence, no flag of its own.
-struct LookBack {
-  unsigned long long* agg_p;  // [slots][G]
-  unsigned long long* agg_s;
-  unsigned long long* inc;
-  uint32_t tag;  // epoch << 2
-};
-
-__device__ __forceinline__ void put(unsigned long long* w, uint32_t tag, float v) {
-  const unsigned long long x = (unsigned long long)tag << 32 | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(w), "l"(x) : "memory");
-}
-__device__ __forceinline__ unsigned long long get(const unsigned long long* w) {
-  unsigned long long x;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(x) : "l"(w) : "memory");
-  return x;
-}
-__device__ __forceinline__ uint32_t tag_of(unsigned long long x) { return (uint32_t)(x >> 32); }
-__device__ __forceinline__ float value_of(unsigned long long x) {
-  return __uint_as_float((uint32_t)x);
-}
-
 // A staging buffer: u, dts [R][G] and B, C [R][K] in the IO dtype for R =
 // C * splits * kSteps rows, each array rounded up to 16 bytes; the CTA has
 // two. ops/selective_scan_fused.py:fwd_tile_smem is the same sum. Row r
@@ -171,9 +135,11 @@ __host__ __device__ __forceinline__ size_t io_bytes(int rows, int G, size_t item
 __host__ __device__ __forceinline__ size_t buffer_bytes(int rows, int G, int K, size_t item) {
   return 2 * io_bytes(rows, G, item) + 2 * round16((size_t)rows * K * item);
 }
-// Two buffers: the tile being walked and the next one, in flight.
-__host__ __device__ __forceinline__ size_t smem_bytes(int rows, int G, int K, size_t item) {
-  return 2 * buffer_bytes(rows, G, K, item);
+// Two buffers (the tile being walked and the next one, in flight), then the
+// look-back's words.
+__host__ __device__ __forceinline__ size_t smem_bytes(int rows, int G, int K, size_t item,
+                                                      int window) {
+  return 2 * buffer_bytes(rows, G, K, item) + lookback_smem_bytes(G, window);
 }
 
 template <typename T>
@@ -193,15 +159,6 @@ __device__ __forceinline__ int step_of(const FwdArgs& args, const FwdTile& tile,
   const int seg = r / kSteps;
   return t_tile + (seg / tile.splits) * args.chunk +
          (seg % tile.splits) * tile.n_sub * kSteps + j * kSteps + r % kSteps;
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most n of this thread's committed groups are in flight.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // Start the loads of sub-tile j of the tile, channels [c0, c0 + G), into
@@ -331,42 +288,12 @@ __device__ __forceinline__ float walk_out(float h, const float (&av)[kSteps],
   return h;
 }
 
-// The state entering the tile for channel g of its chain, from the
-// preceding tiles' words, the nearest first: their aggregates composed until
-// one tile's inclusive prefix is out. kWindow tiles' words are read at once
-// (one round trip to L2 for kWindow tiles); first is the chain's first
-// tile, whose prefix is always inclusive.
-__device__ __forceinline__ float look_back(const LookBack& lb, size_t slot, size_t first, int G,
-                                          int g) {
-  Affine acc{1.f, 0.f};  // the tiles passed so far, composed
-  for (size_t i = slot - 1;;) {
-    unsigned long long wi[kWindow], wp[kWindow], ws[kWindow];
-#pragma unroll
-    for (int m = 0; m < kWindow; ++m) {
-      const size_t at = (i - first >= (size_t)m ? i - m : first) * G + g;
-      wi[m] = get(lb.inc + at);
-      wp[m] = get(lb.agg_p + at);
-      ws[m] = get(lb.agg_s + at);
-    }
-    const size_t start = i;
-#pragma unroll
-    for (int m = 0; m < kWindow; ++m) {
-      if (tag_of(wi[m]) == (lb.tag | kInclusive)) return fmaf(acc.p, value_of(wi[m]), acc.s);
-      if (tag_of(wp[m]) != (lb.tag | kAggregate) || tag_of(ws[m]) != (lb.tag | kAggregate))
-        break;  // not out yet: read again from this tile
-      acc = compose(Affine{value_of(wp[m]), value_of(ws[m])}, acc);
-      --i;
-    }
-    if (i == start) __nanosleep(16);
-  }
-}
-
 // Where tile `id` (blockIdx order: the L-tile slowest) lies.
 struct TileAt {
   size_t b;     // batch row
   int jt;       // L-tile
-  int c0;       // first channel of the group
-  size_t slot;  // look-back slot
+  int c0;        // first channel of the group
+  size_t slot0;  // look-back slot of the chain's first tile
 };
 
 __device__ __forceinline__ TileAt tile_at(const FwdArgs& args, const FwdTile& tile, int id) {
@@ -374,7 +301,7 @@ __device__ __forceinline__ TileAt tile_at(const FwdArgs& args, const FwdTile& ti
   const int jt = id / chains;
   const int chain = id - jt * chains;  // b * n_groups + group
   return {(size_t)(chain / tile.n_groups), jt, (chain % tile.n_groups) * tile.G,
-          (size_t)chain * tile.n_tiles + jt};
+          (size_t)chain * tile.n_tiles};
 }
 
 // Persistent: CTA i takes tiles i, i + gridDim.x, ... in order, with the
@@ -391,6 +318,7 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
   const int segs = tile.C * tile.splits;
   const size_t io = io_bytes(segs * kSteps, G, sizeof(T));
   const size_t bc = round16((size_t)segs * kSteps * K * sizeof(T));
+  float* vals = reinterpret_cast<float*>(smem + 2 * (2 * io + 2 * bc));  // look-back words
   auto buffer = [&](int which) {
     unsigned char* base = smem + which * (2 * io + 2 * bc);
     return Buf<T>{reinterpret_cast<T*>(base), reinterpret_cast<T*>(base + io),
@@ -454,19 +382,15 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
     // the look-back; the state entering each segment.
     part[tid] = fold;
     __syncthreads();
+    Affine agg{1.f, 0.f};
+    const bool checkpoint = is_checkpoint(lb, at.jt);
     if (tid < G) {
-      Affine agg{1.f, 0.f};
       for (int sg = 0; sg < segs; ++sg) agg = compose(agg, part[sg * G + tid]);
-      const size_t w = at.slot * G + tid;
-      float h = 0.f;
-      if (at.jt == 0) {
-        put(lb.inc + w, lb.tag | kInclusive, agg.s);
-      } else {
-        put(lb.agg_p + w, lb.tag | kAggregate, agg.p);
-        put(lb.agg_s + w, lb.tag | kAggregate, agg.s);
-        h = look_back(lb, at.slot, at.slot - at.jt, G, tid);
-        put(lb.inc + w, lb.tag | kInclusive, fmaf(agg.p, h, agg.s));
-      }
+      if (!checkpoint) publish_aggregate(lb, at.slot0, at.jt, G, tid, agg);
+    }
+    float h = look_back(lb, at.slot0, at.jt, G, vals);
+    if (tid < G) {
+      if (checkpoint) publish_inclusive(lb, at.slot0, at.jt, G, tid, fmaf(agg.p, h, agg.s));
       for (int sg = 0; sg < segs; ++sg) {
         const Affine p = part[sg * G + tid];
         part[sg * G + tid].s = h;
@@ -477,7 +401,7 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
 
     // 4. H0 at each chunk's first segment; the re-walk, which recomputes
     // dt and a only where the segment outgrew one sub-tile (from L2).
-    float h = part[tid].s;
+    h = part[tid].s;
     if (live && seg % tile.splits == 0 && ci < args.n_chunks)
       args.H0[(at.b * args.n_chunks + ci) * args.KD + q] = h;
     for (int j = 0; j < tile.n_sub; ++j) {
@@ -493,29 +417,13 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
   }
 }
 
-inline bool aligned(const void* p, size_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
-
-// A persistent grid, at most as many CTAs as the card holds at once: every
-// CTA is resident, so a tile's predecessors, taken earlier by CTAs that run,
-// finish (see the note at the top).
 template <typename T, int kG>
 int launch(const FwdArgs& args, const FwdTile& tile, LookBack lb, int threads, int smem,
-           cudaStream_t stream) {
-  cudaError_t err;  // the opt-in above 48 KB counts the static `part` too, so set it always
-  if ((err = cudaFuncSetAttribute(fused_fwd_kernel<T, kG>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  int device, sms, per_sm;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_fwd_kernel<T, kG>,
-                                                           threads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+           int max_ctas, cudaStream_t stream) {
+  unsigned grid;
   const size_t tiles = (size_t)tile.n_tiles * args.B * tile.n_groups;
-  const unsigned grid = (unsigned)std::min(tiles, (size_t)per_sm * sms);
+  cudaError_t err = persistent_grid(fused_fwd_kernel<T, kG>, threads, smem, tiles, max_ctas, &grid);
+  if (err != cudaSuccess) return (int)err;
   fused_fwd_kernel<T, kG><<<grid, threads, smem, stream>>>(args, tile, lb);
   return (int)cudaGetLastError();
 }
@@ -533,45 +441,45 @@ int launch(const FwdArgs& args, const FwdTile& tile, LookBack lb, int threads, i
 // The tile: tile_channels dividing KD; tile_chunks >= 1; tile_splits
 // segments per chunk, each a whole number of 16-step sub-tiles;
 // tile_threads a multiple of 32 in [channels * chunks * splits, 256];
-// tile_smem at least what they need and at most 232 448 bytes. Returns a
-// cudaError_t; cudaErrorInvalidValue for a shape, tile or workspace it does
-// not take.
+// tile_window >= 1, the look-back's checkpoint spacing W; tile_smem at least
+// what they need and at most 232 448 bytes. max_ctas > 0 caps the grid (the
+// result is the same on any grid). Returns a cudaError_t;
+// cudaErrorInvalidValue for a shape, tile or workspace it does not take.
 extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* bs,
                                     const void* cs, const float* A, const float* bias,
                                     const float* dskip, void* y, float* H0, void* work,
                                     long long work_bytes, unsigned epoch, int B, int L, int KD,
                                     int K, int chunk, int bf16, int tile_channels,
                                     int tile_chunks, int tile_splits, int tile_threads,
-                                    int tile_smem, void* stream) {
+                                    int tile_window, int tile_smem, int max_ctas, void* stream) {
   using namespace vmasr;
   if (B <= 0 || L <= 0 || K <= 0 || KD % K != 0 || chunk <= 0 || chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
   const int G = tile_channels, C = tile_chunks, sp = tile_splits;
   if (G <= 0 || KD % G != 0 || C <= 0 || sp <= 0 || chunk % (sp * kSteps) != 0 ||
       (long long)G * C * sp > tile_threads || tile_threads > kMaxTileThreads ||
-      tile_threads % 32 != 0)
+      tile_threads % 32 != 0 || tile_window < 1)
     return (int)cudaErrorInvalidValue;
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  if (tile_smem > kMaxBlockSmem || (size_t)tile_smem < smem_bytes(C * sp * kSteps, G, K, item))
+  if (tile_smem > kMaxBlockSmem ||
+      (size_t)tile_smem < smem_bytes(C * sp * kSteps, G, K, item, tile_window))
     return (int)cudaErrorInvalidValue;
-  if (epoch == 0 || epoch >= kEpochs) return (int)cudaErrorInvalidValue;
   const int n_chunks = (L + chunk - 1) / chunk;
   const int n_tiles = (n_chunks + C - 1) / C;
   const size_t slots = (size_t)B * (KD / G) * n_tiles;
-  if (slots > 0x7fffffff || work_bytes < 0 || (size_t)work_bytes < 24 * slots * G)
+  if (!lookback_ok(work, work_bytes, epoch, slots, G, tile_window))
     return (int)cudaErrorInvalidValue;
   const bool vec = K == 4 && (G * item) % 16 == 0 && tile_threads % (G * item / 16) == 0 &&
                    (KD * item) % 16 == 0 && aligned(u, 16) && aligned(dts, 16) &&
                    aligned(y, 16) && aligned(bs, 4 * item) && aligned(cs, 4 * item);
   FwdTile tile{G, C, sp, chunk / (sp * kSteps), KD / G, n_tiles, vec};
   FwdArgs args{u, dts, bs, cs, A, bias, dskip, y, H0, B, L, KD, K, chunk, n_chunks};
-  auto* words = static_cast<unsigned long long*>(work);
-  LookBack lb{words, words + slots * G, words + 2 * slots * G, epoch << 2};
+  const LookBack lb = make_lookback(work, slots, G, epoch, tile_window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 32 && K == 4) {
-    return bf16 ? launch<__nv_bfloat16, 32>(args, tile, lb, tile_threads, tile_smem, s)
-                : launch<float, 32>(args, tile, lb, tile_threads, tile_smem, s);
+    return bf16 ? launch<__nv_bfloat16, 32>(args, tile, lb, tile_threads, tile_smem, max_ctas, s)
+                : launch<float, 32>(args, tile, lb, tile_threads, tile_smem, max_ctas, s);
   }
-  return bf16 ? launch<__nv_bfloat16, 0>(args, tile, lb, tile_threads, tile_smem, s)
-              : launch<float, 0>(args, tile, lb, tile_threads, tile_smem, s);
+  return bf16 ? launch<__nv_bfloat16, 0>(args, tile, lb, tile_threads, tile_smem, max_ctas, s)
+              : launch<float, 0>(args, tile, lb, tile_threads, tile_smem, max_ctas, s);
 }

@@ -13,44 +13,92 @@ one to ``linear_recurrence_reverse.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .build import load
+from .lookback import current_stream, lookback_smem, lookback_work_bytes, lookback_workspace
 from .selective_scan_ref import linear_recurrence_ref
 
-# The device kernels one launch runs, by pass, under the names torch.profiler
-# gives them (demangled). chunk_carry_kernel (csrc/scan_common.cuh) is built
-# into each scan library and carries every chunked scan's states.
-CARRY_KERNEL = "vmasr::chunk_carry_kernel(float const*, float const*, float*, int, int, int)"
-_LR_ARGS = ("(float const*, float const*, float const*, float*, float*, float*, float*, "
-            "float const*, int, int, int, int, int)")
+# The device kernel one launch of each wrapper runs, under the names
+# torch.profiler gives it (demangled): one pass, compiled for groups of 8
+# and 32 channels and for any group, and nothing to initialise it (its
+# look-back words carry a per-call epoch).
+_NS = "vmasr::(anonymous namespace)::"
 
 
-def _lr_kernel_name(write: bool, reverse: bool) -> str:
-    flags = ", ".join(str(f).lower() for f in (write, reverse))
-    return f"void vmasr::(anonymous namespace)::lr_chunk_kernel<{flags}>{_LR_ARGS}"
+def _lr_kernel_names(reverse: bool) -> tuple:
+    return tuple(f"void {_NS}lr_scan_kernel<{str(reverse).lower()}, {g}>({_NS}LrArgs, "
+                 f"{_NS}LrTile, vmasr::LookBack)" for g in (8, 32, 0))
 
 
-LR_KERNELS = {"fold": (_lr_kernel_name(False, False),), "carry": (CARRY_KERNEL,),
-              "chunk": (_lr_kernel_name(True, False),)}
-LR_REVERSE_KERNELS = {"fold": (_lr_kernel_name(False, True),), "carry": (CARRY_KERNEL,),
-                      "chunk": (_lr_kernel_name(True, True),)}
+LR_KERNELS = {"scan": _lr_kernel_names(False)}
+LR_REVERSE_KERNELS = {"scan": _lr_kernel_names(True)}
 
-# Threads the chunked kernels aim to start: about one full load of the
-# card's 132 SMs × 2048 resident threads.
-_TARGET_THREADS = 1 << 18
-_MIN_CHUNK, _MAX_CHUNK = 16, 1024
+# The kernel (csrc/linear_recurrence.cu) walks tiles of (row, L-tile,
+# channel group), one thread per (16-step segment, channel), staged in
+# shared memory.
+_LR_STEPS = 16          # the kernel's kSeg
+_LR_MAX_THREADS = 256   # the kernel's kMaxThreads
+_LR_MAX_GROUP = 64      # the kernel's kMaxGroup
+_INT32_MAX = 2**31 - 1
 
 
-def chunk_length(rows: int, length: int, channels: int) -> int:
-    """L-chunk of the chunked scan kernels: the power of two (16..1024) that
-    gives each of about ``_TARGET_THREADS`` threads one chunk of one channel."""
-    want = -(-rows * length * channels // _TARGET_THREADS)
-    chunk = _MIN_CHUNK
-    while chunk < want and chunk < _MAX_CHUNK:
-        chunk *= 2
-    return chunk
+class LrTileLayout(NamedTuple):
+    channels: int    # per CTA: a divisor of D
+    segments: int    # per tile, each of 16 steps, one thread per channel
+    threads: int     # channels × segments, rounded up to a warp
+    window: int      # the look-back's checkpoint spacing W
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def _lr_window(channels: int, reverse: bool) -> int:
+    """The look-back's W for groups of ``channels``: W·G near 1024 forward
+    and 512 in reverse (a tile reads at most ~8 KB or ~4 KB of aggregates),
+    within 8..64; the fastest of 8, 16, 32 and 64 at each flagship shape on
+    an H100 but for ties within the spread (W = 32 forward at G = 32, 16 in
+    reverse; 32 or 64 alike at G = 8)."""
+    return max(8, min(64, (512 if reverse else 1024) // channels))
+
+
+def lr_tile_smem(channels: int, segments: int, reverse: bool, window: int) -> int:
+    """Shared memory of one CTA (csrc/linear_recurrence.cu:smem_bytes): two
+    buffers of a and b (the reverse: a, g, h), each ``segments`` × 16 steps
+    of ``channels`` fp32 with segments padded apart by ``channels`` floats
+    where ``channels`` < 32 divides 32, and the look-back's words."""
+    stride = _LR_STEPS * channels + (channels if channels < 32 and 32 % channels == 0 else 0)
+    return 2 * (3 if reverse else 2) * segments * stride * 4 + lookback_smem(channels, window)
+
+
+@functools.lru_cache(maxsize=None)
+def lr_tile_layout(r: int, l: int, d: int, reverse: bool = False,
+                   window: int | None = None) -> LrTileLayout:
+    """Geometry of the recurrence kernel for (``r``, ``l``, ``d``) inputs,
+    forward or ``reverse``. A tile takes 32 channels where D is a multiple of
+    32, else the largest divisor of D up to 64, and as many 16-step segments
+    as 256 threads hold; ``window`` overrides the look-back's W."""
+    if min(r, l, d) <= 0:
+        raise ValueError(f"the recurrence takes (R, L, D) with each > 0, got {(r, l, d)}")
+    channels = 32 if d % 32 == 0 else max(
+        g for g in range(1, min(d, _LR_MAX_GROUP) + 1) if d % g == 0)
+    segments = _LR_MAX_THREADS // channels
+    threads = -(-channels * segments // 32) * 32
+    window = _lr_window(channels, reverse) if window is None else window
+    if window < 1:
+        raise ValueError(f"the look-back's window must be >= 1, got {window}")
+    n_tiles = -(-l // (segments * _LR_STEPS))
+    if r * (d // channels) * n_tiles > _INT32_MAX:
+        raise ValueError(f"(R, L, D) = {(r, l, d)} has more tiles than int32 counts")
+    return LrTileLayout(channels, segments, threads, window,
+                        lr_tile_smem(channels, segments, reverse, window))
+
+
+def lr_workspace_bytes(r: int, l: int, d: int, tile: LrTileLayout) -> int:
+    """Bytes of the kernel's look-back workspace for (``r``, ``l``, ``d``)."""
+    n_tiles = -(-l // (tile.segments * _LR_STEPS))
+    return lookback_work_bytes(r * (d // tile.channels) * n_tiles, tile.channels)
 
 
 def linear_recurrence_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -71,14 +119,12 @@ def linear_recurrence_reverse_plain(a: torch.Tensor, h: torch.Tensor, g: torch.T
     return dh * h_prev, dh
 
 
+@functools.cache
 def _kernel(reverse: bool):
     lib = load("linear_recurrence.cu")
-    if reverse:
-        fn = lib.vmasr_linear_recurrence_reverse
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    else:
-        fn = lib.vmasr_linear_recurrence
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = lib.vmasr_linear_recurrence_reverse if reverse else lib.vmasr_linear_recurrence
+    fn.argtypes = ([ctypes.c_void_p] * (6 if reverse else 4) + [ctypes.c_int64, ctypes.c_uint32]
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,42 +141,46 @@ def _check(*tensors):
         raise ValueError("the kernel takes contiguous tensors")
 
 
-def _launch(reverse: bool, *ptrs, shape, device):
+def _launch(reverse: bool, ptrs, shape, device, max_ctas: int, window: int | None):
     r, l, d = shape
-    chunk = chunk_length(r, l, d)
-    n_chunks = -(-l // chunk)
-    p, s, h0 = torch.empty((3, r, n_chunks, d), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(reverse)(*ptrs, p.data_ptr(), s.data_ptr(), h0.data_ptr(),
-                               r, l, d, chunk, stream)
+    tile = lr_tile_layout(r, l, d, reverse, window)
+    stream = current_stream(device)
+    work, epoch = lookback_workspace(device, stream, lr_workspace_bytes(r, l, d, tile))
+    err = _kernel(reverse)(*ptrs, work.data_ptr(), work.numel(), epoch, r, l, d, *tile,
+                           max_ctas, stream)
     if err:
         name = "linear_recurrence_reverse" if reverse else "linear_recurrence"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def linear_recurrence_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on contiguous fp32 CUDA tensors (R, L, D)."""
+def linear_recurrence_fwd(a: torch.Tensor, b: torch.Tensor, *, max_ctas: int = 0,
+                          window: int | None = None) -> torch.Tensor:
+    """Launch the forward kernel on contiguous fp32 CUDA tensors (R, L, D).
+    ``max_ctas`` > 0 caps the persistent grid and ``window`` sets the
+    look-back's W: checks that the result does not depend on them."""
     _check(a, b)
     h = torch.empty_like(a)
-    _launch(False, a.data_ptr(), b.data_ptr(), h.data_ptr(), shape=a.shape, device=a.device)
+    _launch(False, (a.data_ptr(), b.data_ptr(), h.data_ptr()), a.shape, a.device, max_ctas,
+            window)
     linear_recurrence.launches += 1
     return h
 
 
-def linear_recurrence_reverse(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
+def linear_recurrence_reverse(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor, *,
+                              max_ctas: int = 0, window: int | None = None):
     """The recurrence's backward: given a, the forward's h and the gradient g
     of h, returns (da, db) with db_t = dh_t = g_t + a_{t+1}·dh_{t+1} and
     da_t = dh_t·h_{t-1}, fp32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel in
-    reverse, on contiguous fp32 tensors of one shape and nothing else."""
+    reverse, on contiguous fp32 tensors of one shape and nothing else
+    (``max_ctas`` and ``window`` as for ``linear_recurrence_fwd``)."""
     if all(t.device.type == "cpu" for t in (a, h, g)):
         return linear_recurrence_reverse_plain(a, h, g)
     _check(a, h, g)
     dh, da = torch.empty_like(a), torch.empty_like(a)
-    _launch(True, a.data_ptr(), g.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
-            shape=a.shape, device=a.device)
+    _launch(True, (a.data_ptr(), g.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr()),
+            a.shape, a.device, max_ctas, window)
     linear_recurrence_reverse.launches += 1
     return da, dh
 

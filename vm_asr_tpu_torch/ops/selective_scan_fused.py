@@ -26,22 +26,41 @@ from typing import NamedTuple
 import torch
 
 from .build import load
-from .linear_recurrence import _MAX_CHUNK, _MIN_CHUNK, CARRY_KERNEL, chunk_length
+from .lookback import current_stream, lookback_smem, lookback_work_bytes, lookback_workspace
 from .selective_scan_ref import linear_recurrence_ref, softplus
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# Threads the chunked kernels aim to start: about one full load of the
+# card's 132 SMs × 2048 resident threads.
+_TARGET_THREADS = 1 << 18
+_MIN_CHUNK, _MAX_CHUNK = 16, 1024
+
+
+def chunk_length(rows: int, length: int, channels: int) -> int:
+    """L-chunk of the fused kernels: the power of two (16..1024) that gives
+    each of about ``_TARGET_THREADS`` threads one chunk of one channel."""
+    want = -(-rows * length * channels // _TARGET_THREADS)
+    chunk = _MIN_CHUNK
+    while chunk < want and chunk < _MAX_CHUNK:
+        chunk *= 2
+    return chunk
+
 
 # The device kernels one launch of each wrapper runs, by pass, under the
 # names torch.profiler gives them (demangled), for bf16 and fp32 IO. The
 # forward is one kernel, compiled for 32-channel groups and for any group,
 # and needs nothing to initialise it (its look-back words carry a per-call
 # epoch). The backward's fold takes two bf16 channels per 4-byte load where
-# the rows allow, else one channel per thread.
+# the rows allow, else one channel per thread; its carry pass
+# (csrc/fused_scan_bwd.cu:chunk_carry_kernel) is the only chunk-carry kernel
+# left in the port.
 _NS = "vmasr::(anonymous namespace)::"
 _TYPES = ("__nv_bfloat16", "float")
+CARRY_KERNEL = "vmasr::chunk_carry_kernel(float const*, float const*, float*, int)"
 FWD_KERNELS = {
     "scan": tuple(f"void {_NS}fused_fwd_kernel<{t}, {g}>({_NS}FwdArgs, {_NS}FwdTile, "
-                  f"{_NS}LookBack)" for t in _TYPES for g in (32, 0)),
+                  "vmasr::LookBack)" for t in _TYPES for g in (32, 0)),
 }
 BWD_KERNELS = {
     "fold": tuple(f"void {_NS}bwd_fold_kernel<{t}, {v}>({_NS}BwdArgs, float*, float*)"
@@ -124,7 +143,7 @@ def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
 def _fwd_kernel():
     fn = load("fused_scan.cu").vmasr_fused_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_uint32]
-                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -211,6 +230,7 @@ def bwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> TileLay
 _FWD_GROUP = 32           # channels per CTA where K·D is a multiple of it
 _FWD_MAX_THREADS = 256    # the kernel's __launch_bounds__
 _FWD_STEPS = 16           # the kernel's kSteps
+_FWD_WINDOW = 16          # the look-back's checkpoint spacing W
 
 
 class FwdTileLayout(NamedTuple):
@@ -218,7 +238,8 @@ class FwdTileLayout(NamedTuple):
     chunks: int      # per CTA: the L-tile, in whole chunks
     splits: int      # segments per chunk, each a whole number of 16 steps
     threads: int     # channels × chunks × splits, rounded up to a warp
-    smem_bytes: int  # dynamic shared memory per CTA
+    window: int      # the look-back's checkpoint spacing W
+    smem_bytes: int  # dynamic shared memory per CTA: staging and look-back
 
 
 def fwd_tile_smem(channels: int, segments: int, k_group: int, itemsize: int) -> int:
@@ -231,7 +252,8 @@ def fwd_tile_smem(channels: int, segments: int, k_group: int, itemsize: int) -> 
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> FwdTileLayout:
+def fwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int,
+                    window: int = _FWD_WINDOW) -> FwdTileLayout:
     """Geometry of the forward kernel for (B, L, ``kd``) inputs of
     ``itemsize`` bytes in L-chunks of ``chunk`` steps (16 to 1024, a multiple
     of 16). A tile takes 32 channels where K·D is a multiple of 32 (the
@@ -239,7 +261,7 @@ def fwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> FwdTile
     goes to as many 16-step segments (threads per channel) as 256 threads
     hold, so that at 32 channels a thread walks one 16-step sub-tile of
     every chunk of up to 256 steps; and a tile takes as many chunks as fit
-    in 256 threads."""
+    in 256 threads. ``window`` is the look-back's W."""
     if k_group <= 0 or kd % k_group:
         raise ValueError(f"K·D = {kd} is not a multiple of K = {k_group}")
     if itemsize not in (2, 4):
@@ -254,8 +276,11 @@ def fwd_tile_layout(kd: int, k_group: int, chunk: int, itemsize: int) -> FwdTile
     splits = max(s for s in range(1, min(sub_tiles, cap) + 1) if sub_tiles % s == 0)
     chunks = max(1, _FWD_MAX_THREADS // (channels * splits))
     threads = -(-channels * chunks * splits // 32) * 32
-    return FwdTileLayout(channels, chunks, splits, threads,
-                         fwd_tile_smem(channels, chunks * splits, k_group, itemsize))
+    if window < 1:
+        raise ValueError(f"the look-back's window must be >= 1, got {window}")
+    return FwdTileLayout(channels, chunks, splits, threads, window,
+                         fwd_tile_smem(channels, chunks * splits, k_group, itemsize)
+                         + lookback_smem(channels, window))
 
 
 def fwd_workspace_bytes(bsz: int, l: int, kd: int, chunk: int, tile: FwdTileLayout) -> int:
@@ -264,7 +289,7 @@ def fwd_workspace_bytes(bsz: int, l: int, kd: int, chunk: int, tile: FwdTileLayo
     8 bytes each (the value and its tag)."""
     n_chunks = -(-l // chunk)
     slots = bsz * (kd // tile.channels) * -(-n_chunks // tile.chunks)
-    return 24 * slots * tile.channels
+    return lookback_work_bytes(slots, tile.channels)
 
 
 def _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
@@ -292,46 +317,29 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-# The look-back workspace of each (device, stream): [bytes (uint8), the last
-# epoch]. The kernel tells this call's flags from earlier ones by the epoch
-# (1 to 2^30 - 1), so the workspace is zeroed only when it is made.
-_EPOCHS = 1 << 30
-_workspaces: dict = {}
-
-
-def _lookback_workspace(device, stream: int, nbytes: int):
-    key = (device, stream)
-    ws = _workspaces.get(key)
-    if ws is None or ws[0].numel() < nbytes or ws[1] + 1 >= _EPOCHS:
-        ws = _workspaces[key] = [torch.zeros(nbytes, dtype=torch.uint8, device=device), 0]
-    ws[1] += 1
-    return ws[0], ws[1]
-
-
-def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int):
+def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int, *,
+                             max_ctas: int = 0, window: int = _FWD_WINDOW):
     """Launch the forward kernel on CUDA tensors. Returns (y, H0, chunk): y
     (B, L, K·D) in u's dtype, H0 (B, n_chunks, K·D) fp32 the state entering
-    each L-chunk of length ``chunk``."""
+    each L-chunk of length ``chunk``. ``max_ctas`` > 0 caps the persistent
+    grid and ``window`` sets the look-back's W: checks that the result does
+    not depend on them."""
     if u.device.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {u.device}")
     _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
     bsz, l, kd = u.shape
     chunk = chunk_length(bsz, l, kd)
-    tile = fwd_tile_layout(kd, k_group, chunk, u.element_size())
+    tile = fwd_tile_layout(kd, k_group, chunk, u.element_size(), window)
     y = torch.empty_like(u)
     h0 = torch.empty((bsz, -(-l // chunk), kd), dtype=torch.float32, device=u.device)
-    stream = _stream(u.device)
-    work, epoch = _lookback_workspace(u.device, stream,
-                                      fwd_workspace_bytes(bsz, l, kd, chunk, tile))
+    stream = current_stream(u.device)
+    work, epoch = lookback_workspace(u.device, stream,
+                                     fwd_workspace_bytes(bsz, l, kd, chunk, tile))
     err = _fwd_kernel()(u.data_ptr(), dts.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                         a_neg.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(),
                         y.data_ptr(), h0.data_ptr(), work.data_ptr(), work.numel(), epoch,
                         bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16),
-                        *tile, stream)
+                        *tile, max_ctas, stream)
     if err:
         raise RuntimeError(f"selective_scan_fused kernel launch failed: cudaError {err}")
     selective_scan_fused.launches += 1
@@ -376,7 +384,7 @@ def selective_scan_fused_bwd(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip, h0,
         du.data_ptr(), ddts.data_ptr(), dbs.data_ptr(), dcs.data_ptr(),
         work.data_ptr(), work[3 * kd:].data_ptr(),
         bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16), *tile,
-        _stream(u.device))
+        current_stream(u.device))
     if err:
         raise RuntimeError(f"selective_scan_fused_bwd kernel launch failed: cudaError {err}")
     selective_scan_fused_bwd.launches += 1
