@@ -39,7 +39,15 @@ raising on failure:
    warm-up and 10 timed steps on synthetic speech, with launch counts, then
    one profiled step by kernel (each wrapper's kernels by their exported
    names) and one by op and input shapes.
-9. the kernels line, the card line, and the result line.
+9. cli: the port's own entry point, vm_asr_tpu_torch.cli, in-process at the
+   flagship's full width and depth on the synthetic corpus (16 kHz input):
+   train one epoch (5 steps at batch 4, one validation batch) with
+   checkpoints, resume for a second epoch (one step profiled), --eval of
+   the best checkpoint on four two-segment clips, and --throughput at
+   batch 4, with exact launch counts for each; plus the time of one
+   DegradingSampler.sample at input rates drawn as the flagship config
+   draws them.
+10. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -47,8 +55,11 @@ Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 from __future__ import annotations
 
 import argparse
+import csv
 import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,7 +70,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
+from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK
 from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
 from vm_asr_tpu_torch.models import SS2D, get_discriminators, get_generator, set_scan_impl
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
@@ -83,6 +96,7 @@ from vm_asr_tpu_torch.ops.linear_recurrence import (
     lr_tile_layout,
 )
 from vm_asr_tpu_torch.ops.selective_scan_fused import BWD_KERNELS, FWD_KERNELS, fwd_tile_layout
+from vm_asr_tpu_torch.train import tester as tester_module
 from vm_asr_tpu_torch.train import (
     DiscState,
     GenState,
@@ -596,6 +610,167 @@ def speech_like(seconds: float, sr: int, seed: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def sampler_times(cfg, draws: int = 8):
+    """Host seconds of one DegradingSampler.sample of a flagship training
+    item at input rates drawn as the config draws them (uniform over
+    RANDOM_RESAMPLE, here 8000..48000 Hz), one per seed; and of a whole
+    DataPipeline pass (five batches of four, DATA.NUM_WORKERS 4 threads) at
+    such rates, the items synthesised beforehand."""
+    ds = SyntheticVCTK(n_items=20, sr=cfg.DATA.TARGET_SR, duration=cfg.DATA.SEGMENT + 0.05)
+    for i in range(len(ds)):
+        ds.load(i)  # synthesis is memoised; time the degradation
+    sampler = DegradingSampler(ds, cfg, training=True)
+    out = []
+    for seed in range(draws):
+        rate = sampler._draw_input_sr(np.random.default_rng([seed, 0]))
+        t = time.perf_counter()
+        sampler.sample(0, np.random.default_rng([seed, 0]))
+        out.append((rate, time.perf_counter() - t))
+    t = time.perf_counter()
+    n = sum(1 for _ in DataPipeline(sampler, batch_size=TRAIN_BATCH, num_workers=4))
+    return out, n, time.perf_counter() - t
+
+
+def cli_phase(smi: str, bare_idle):
+    """Train, resume, eval and throughput through vm_asr_tpu_torch.cli.run,
+    in-process, with exact launch counts; returns (report, launches of the
+    first training run)."""
+    cfg = flagship_config(amp=True, gan=True)
+    rates, n_batches, pipe_s = sampler_times(cfg)
+    for rate, sec in rates:
+        print(f"DegradingSampler.sample at a drawn input rate of {rate} Hz: {sec:.3f} s "
+              f"(host)  [{smi}]")
+    print(f"DataPipeline at drawn input rates: {n_batches} batches of {TRAIN_BATCH} in "
+          f"{pipe_s:.3f} s, {pipe_s / n_batches:.3f} s a batch (4 threads, host)  [{smi}]")
+    work = OUT / "cli"  # the working directory: the Tester's CSV lands here
+    runs = ROOT / "build" / "chip_smoke_cli"  # checkpoints, ~1 GB a save: not in OUT
+    for d in (work, runs):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    base = ["--cfg", str(CONFIG), "--tag", "chip", "--input_sr", "16000", "--synthetic_data",
+            "--synthetic_n", "24"]
+    opts = ["DATA.VALID_SPLIT", "0.2", "DATA.NUM_WORKERS", "4", "TENSORBOARD.ENABLE", "False",
+            "OUTPUT", str(runs)]
+    run_dir = runs / "DualStreamInteractiveMambaUNet" / "chip"
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # 1. train one epoch
+        zero_counts()
+        mode, trainer = cli.run(base + ["--opts", "TRAIN.EPOCHS", "1"] + opts)
+        train_counts = read_counts()
+        first = trainer.timings[-1]
+        n, v = first["steps"], len(trainer.valid_loader)
+        want = dict(selective_scan_fused=30 * (n + v), selective_scan_fused_bwd=30 * n,
+                    linear_recurrence=4 * (n + v), linear_recurrence_reverse=4 * n)
+        files = sorted(p.name for p in run_dir.glob("checkpoint-*.pth"))
+        sizes = {p.name: p.stat().st_size for p in run_dir.glob("checkpoint-*.pth")}
+        print(f"cli train: mode {mode}, {n} steps, {v} validation batch(es), launches "
+              f"{train_counts}, checkpoints {sizes}")
+        if (mode, n, v) != ("train", 5, 1) or train_counts != want or files != [
+                f"checkpoint-{k}-{m}.pth" for k in ("best", "latest") for m in ("G", "mpd")]:
+            raise AssertionError(f"cli train: want 5 steps, 1 validation batch, launches "
+                                 f"{want} and best/latest checkpoints; got {n}, {v}, "
+                                 f"{train_counts}, {files}")
+        steps = first["step_s"]
+        print(f"cli train: {statistics.median(steps):.4f} s/it median over {n} steps "
+              f"(min {min(steps):.4f}, max {max(steps):.4f}; host clock, the first step "
+              f"cold; {statistics.median(steps[1:]):.4f} over steps 2..{n}), data wait "
+              f"{first['data_wait_s'][0]:.4f} s for the first batch and "
+              f"{sum(first['data_wait_s'][1:]):.4f} s for the rest, epoch "
+              f"{first['epoch_s']:.3f} s, validation {first['valid_s']:.3f} s, checkpoint "
+              f"writes {first['save_ms']:.1f} ms for {sum(sizes.values()) / 1e9:.3f} GB  "
+              f"[{smi}]")
+        del trainer
+
+        # 2. resume for a second epoch, its second step profiled
+        zero_counts()
+        mode, trainer = cli.run(base + ["--opts", "TRAIN.EPOCHS", "2", "PROFILE_STEPS", "1"]
+                                + opts)
+        resume_counts = read_counts()
+        second = trainer.timings[-1]
+        counts = {name: s.optimizer.count for name, s in
+                  [("G", trainer.gen_state)] + list(trainer.disc_states.items())}
+        print(f"cli resume: start epoch {trainer.start_epoch}, {second['steps']} steps, "
+              f"optimizer counts {counts}, generator step {trainer.gen_state.step}, "
+              f"launches {resume_counts}")
+        if (trainer.start_epoch, second["steps"], trainer.gen_state.step) != (1, n, 2 * n) or \
+                set(counts.values()) != {2 * n} or resume_counts != want:
+            raise AssertionError("cli resume did not continue from epoch 1 and count "
+                                 f"{n}: {counts}, {resume_counts}")
+        prof = second["profile"]
+        steps2 = second["step_s"]
+        print(f"cli resume: {statistics.median(steps2):.4f} s/it median (min "
+              f"{min(steps2):.4f}, max {max(steps2):.4f}; step 2 profiled and its trace "
+              f"written; {statistics.median(steps2[2:]):.4f} over steps 3..{n}), epoch "
+              f"{second['epoch_s']:.3f} s, validation {second['valid_s']:.3f} s, checkpoint "
+              f"writes {second['save_ms']:.1f} ms  [{smi}]")
+        # As the train phase takes its idle share: busy time over the median
+        # of the unprofiled steps (the profiler lengthens the step it traces).
+        busy = prof["device_busy_ms"]
+        warm_ms = 1e3 * statistics.median(steps2[2:])
+        idle = "not measured" if busy is None else f"{1 - busy / warm_ms:.3f}"
+        traced = "not measured" if busy is None else f"{prof['idle_share']:.3f}"
+        bare = "not measured" if bare_idle is None else f"{bare_idle:.3f}"
+        print(f"cli profiled step: device busy {fmt_ms(busy)} in {prof['device_events']} "
+              f"device events; idle share {idle} of the median unprofiled step "
+              f"({warm_ms:.2f} ms; the train phase's bare step: {bare}), {traced} of the "
+              f"traced step's own wall ({prof['wall_ms']:.2f} ms)  [{smi}]")
+        shutil.copy(run_dir / "log_rank0.txt", work / "train_log_rank0.txt")
+        del trainer
+
+        # 3. evaluate the best checkpoint on four clips of two segments
+        zero_counts()
+        mode, tester = cli.run(["--cfg", str(CONFIG), "--eval", "--tag", "16000_48000",
+                                "--resume", str(run_dir), "--synthetic_data", "--synthetic_n",
+                                "4", "--opts", "TENSORBOARD.ENABLE", "False",
+                                "TEST.RESULTS_DIR", str(work / "results")])
+        eval_counts = read_counts()
+        shapes = {tester._num_segments(r["samples"]) for r in tester.rows}
+        measured = 3 * 3 * tester_module.MEASURE_ITERS  # windows × (N + 2N) forwards
+        forwards = len(tester.rows) + 1 + measured  # clips, one warm-up, the measurement
+        eval_want = dict(selective_scan_fused=30 * forwards, selective_scan_fused_bwd=0,
+                         linear_recurrence=4 * forwards, linear_recurrence_reverse=0)
+        with open(work / "results_48kHz.csv") as f:
+            table = list(csv.reader(f))
+        header = [c.upper() for c in tester_module.CSV_COLUMNS + tester_module.COMPUTE_COLUMNS]
+        values = [float(x) for x in table[1]] if len(table) == 2 else []
+        for r in tester.rows:
+            print(f"cli eval {r['name']}: rtf {r['rtf']:.4f}, rtf_compute "
+                  f"{r['rtf_compute']:.4f}, snr {r['snr']:.3f}, lsd {r['lsd']:.3f} "
+                  f"(lsd_input {r['lsd_input']:.3f})  [{smi}]")
+        print(f"cli eval: {len(tester.rows)} clips of {shapes} segments, launches "
+              f"{eval_counts}; csv {table}")
+        if mode != "eval" or len(tester.rows) != 4 or shapes != {2} or \
+                eval_counts != eval_want or table[0] != header or len(values) != 9 or \
+                not np.isfinite(values).all():
+            raise AssertionError(f"cli eval: want 4 two-segment clips, launches {eval_want} "
+                                 f"and one finite 9-column CSV row; got {eval_counts}, {table}")
+
+        # 4. throughput at batch 4
+        zero_counts()
+        mode, stats = cli.run(["--cfg", str(CONFIG), "--throughput", "--batch_size", "4",
+                               "--opts", "TENSORBOARD.ENABLE", "False", "OUTPUT", str(runs)])
+        tp_counts = read_counts()
+        calls = 1 + 2 + 3 * 3 * 10  # first call, warm-up, windows × (N + 2N) at N = 10
+        print(f"cli throughput: {stats['segments_per_second']:.2f} segments/s, "
+              f"{stats['x_real_time']:.2f}x real time at batch {stats['batch']} "
+              f"({stats['seconds_per_call'] * 1e3:.2f} ms a call, CUDA events); launches "
+              f"{tp_counts}  [{smi}]")
+        if mode != "throughput" or stats["batch"] != 4 or tp_counts != dict(
+                selective_scan_fused=30 * calls, selective_scan_fused_bwd=0,
+                linear_recurrence=4 * calls, linear_recurrence_reverse=0):
+            raise AssertionError(f"cli throughput: launches {tp_counts} for {calls} calls")
+    finally:
+        os.chdir(cwd)
+    report = dict(sampler=rates, pipeline=dict(batches=n_batches, seconds=pipe_s),
+                  checkpoint_bytes=sizes, train=first, resume=second, eval_rows=tester.rows,
+                  eval_csv=table, throughput=stats, launches=dict(
+                      train=train_counts, resume=resume_counts, eval=eval_counts,
+                      throughput=tp_counts))
+    return report, train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -969,6 +1144,11 @@ def main() -> int:
                            scan_kernels_by_wrapper=in_step, top=by_name.most_common(20),
                            top_ops=ops)
     print(f"trained in {time.perf_counter() - t0:.1f} s")
+    del model, discs, gen_state, disc_states, step, batches, history
+
+    t0 = phase("cli: train, resume, eval, throughput (vm_asr_tpu_torch.cli, flagship, batch 4)")
+    report["cli"], cli_launches = cli_phase(smi, idle)
+    print(f"cli phase in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
@@ -993,7 +1173,7 @@ def main() -> int:
                     device_ms=None if None in dev else sum(dev),
                     in_step_device_ms=sum(in_step[part[0]] for part in parts) if events else None,
                     bound_ms=sum(x["bound_ms"] for x in sums), bound_by="bytes",
-                    library_ms=None, check="pass",
+                    library_ms=None, check="pass", cli_launches=cli_launches[name],
                     per="one batch-4 train step, summed over its calls", **extra)
 
     bwd_step = per_train_step("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")

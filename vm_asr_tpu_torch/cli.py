@@ -1,84 +1,182 @@
-"""Command-line entry point of the PyTorch port: inference only.
+"""Command-line entry point of the PyTorch port (port of vm_asr_tpu/cli.py;
+reference main.py:28-92):
 
-    python -m vm_asr_tpu_torch.cli --cfg configs/vm_asr_48k_MPD.yaml --inference \
-        --tag 16000_48000 --resume RUN_DIR --input file.wav [--device cuda]
+    python -m vm_asr_tpu_torch.cli --cfg configs/vm_asr_48k_MPD.yaml --tag 48k_MPD
+    python -m vm_asr_tpu_torch.cli --cfg ... --eval --tag 16000_48000 --resume RUN_DIR
+    python -m vm_asr_tpu_torch.cli --cfg ... --inference --tag 16000_48000 \
+        --resume RUN_DIR --input file.wav
+    python -m vm_asr_tpu_torch.cli --cfg ... --throughput [--batch_size 4]
 
-Mirrors the ``--inference`` path of vm_asr_tpu/cli.py: TAG is
-``{input_sr}_{target_sr}``, ``--opts KEY VALUE ...`` overrides the config,
-and the generator's weights come from a reference ``*best*G*.pth`` in the
-``--resume`` directory (random init from ``SEED``, with a warning, when there
-is none). Runs on the card unless ``--device cpu`` is given. Training,
-``--eval`` and orbax checkpoints are not ported yet.
+Modes: train (the default), ``--eval``, ``--inference`` and ``--throughput``.
+``--opts KEY VALUE ...`` overrides the config; ``--input_sr N`` collapses the
+random input rate to N (the reference's specialised models); TAG is
+``{input_sr}_{target_sr}`` for eval and inference (reference main.py:239-283).
+Training writes reference-layout ``checkpoint-*-{G,mpd}.pth`` files to
+OUTPUT/MODEL.NAME/TAG and resumes from them; eval and inference load the
+run's ``*best*G*.pth`` (or its latest). Everything runs on the card unless
+``--device cpu`` is given. Orbax checkpoints of the JAX package are not read
+yet.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import os
+import random
 import sys
+
+import numpy as np
 
 
 def parse_option(argv=None):
-    p = argparse.ArgumentParser("VM-ASR PyTorch port (inference)")
+    p = argparse.ArgumentParser("VM-ASR PyTorch port: train / eval / infer / throughput")
     p.add_argument("--cfg", type=str, required=True, metavar="FILE",
                    help="path to config yaml")
     p.add_argument("--opts", nargs="+", default=None,
                    help="override config options: KEY VALUE pairs")
+    p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--resume", type=str, default=None,
-                   help="run directory holding a reference *best*G*.pth")
+                   help="run directory to resume / load checkpoints from")
+    p.add_argument("--accumulation_steps", type=int, default=None)
     p.add_argument("--disable_amp", action="store_true")
     p.add_argument("--output", type=str, default=None)
     p.add_argument("--tag", type=str, default=None)
+    p.add_argument("--eval", action="store_true")
     p.add_argument("--inference", action="store_true")
+    p.add_argument("--throughput", action="store_true")
+    p.add_argument("--optim", type=str, default=None)
+    p.add_argument("--input_sr", type=int, default=None)
+    p.add_argument("--target_sr", type=int, default=None)
     p.add_argument("--input", type=str, default=None,
                    help="wav file or directory for --inference")
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="use the synthetic corpus instead of VCTK (smoke runs)")
+    p.add_argument("--synthetic_n", type=int, default=64,
+                   help="synthetic corpus size (with --synthetic_data)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu only on request)")
     return p.parse_args(argv)
 
 
 def load_generator_weights(config, generator, logger) -> None:
-    """Load the first ``*best*G*.pth`` of the resume directory, if any."""
+    """Load the resume directory's ``*best*G*.pth``, else its
+    ``checkpoint-latest-G.pth``; random init from SEED, with a warning, when
+    there is neither (the reference tolerates that too, utils.py:121-129)."""
     from .compat import load_reference_checkpoint
+    from .core.checkpoint import CheckpointManager
 
     run_dir = config.MODEL.RESUME_PATH or config.OUTPUT
-    pths = sorted(glob.glob(os.path.join(run_dir, "*best*G*.pth")))
-    if pths:
-        load_reference_checkpoint(generator, pths[0])
-        logger.info(f"Loaded reference torch checkpoint {pths[0]}")
+    latest = os.path.join(run_dir, "checkpoint-latest-G.pth")
+    path = CheckpointManager.find_best(run_dir, "G") or (latest if os.path.isfile(latest)
+                                                         else None)
+    if path:
+        load_reference_checkpoint(generator, path)
+        logger.info(f"Loaded generator checkpoint {path}")
         return
-    logger.warning(
-        f"No checkpoint found in {run_dir}; using random init from SEED "
-        f"{config.SEED} (the reference tolerates absent checkpoints too)"
-    )
+    logger.warning(f"No checkpoint found in {run_dir}; using random init from SEED "
+                   f"{config.SEED}")
 
 
-def main(argv=None) -> int:
+def run(argv=None):
+    """Parse ``argv`` and run its mode; returns (mode, result): the Trainer
+    after training, the Tester after ``--eval``, the Inferencer after
+    ``--inference``, and the timing dict of ``--throughput``."""
     args = parse_option(argv)
-    if not args.inference:
-        raise SystemExit("only --inference is ported to PyTorch; train and "
-                         "evaluate with python -m vm_asr_tpu.cli")
-    if args.input is None:
-        raise ValueError("--inference requires --input FILE_OR_DIR")
-    if not os.path.exists(args.input):
-        raise FileNotFoundError(f"--input path does not exist: {args.input}")
+    if args.inference:
+        # Cheap preconditions before the model is built.
+        if args.input is None:
+            raise ValueError("--inference requires --input FILE_OR_DIR")
+        if not os.path.exists(args.input):
+            raise FileNotFoundError(f"--input path does not exist: {args.input}")
+
+    import torch
 
     from .core import create_logger, get_config, resolve_device
-    from .models import get_generator
-    from .train.inferencer import Inferencer
+    from .data import SyntheticVCTK, get_loaders
+    from .models import get_discriminators, get_generator
 
     config = get_config(args)
     logger = create_logger(config.OUTPUT)
     device = resolve_device(args.device)
-    logger.info(f"Mode: inference on {device}")
-    generator = get_generator(config, device)
-    load_generator_weights(config, generator, logger)
-    inferencer = Inferencer(config, generator, logger, device=device)
-    if os.path.isdir(args.input):
-        inferencer.infer_directory(args.input)
-    else:
-        inferencer.infer_file(args.input)
+    mode = ("eval" if config.EVAL_MODE else "inference" if config.INFERENCE_MODE
+            else "throughput" if config.THROUGHPUT_MODE else "train")
+    logger.info(f"Mode: {mode} on {device}")
+
+    # Seeding (reference main.py:293-298); the models and the steps take
+    # their own generators, seeded from SEED.
+    random.seed(config.SEED)
+    np.random.seed(config.SEED)
+    torch.manual_seed(config.SEED)
+
+    generator = get_generator(config, device, seed=config.SEED)
+    logger.info(f"Model: {config.MODEL.NAME}")
+
+    dataset = None
+    if args.synthetic_data:
+        dataset = SyntheticVCTK(
+            n_items=args.synthetic_n, sr=config.DATA.TARGET_SR,
+            duration=config.DATA.SEGMENT + 0.05,
+            training=not (config.EVAL_MODE or config.INFERENCE_MODE),
+        )
+
+    if config.THROUGHPUT_MODE:
+        from .core.profiling import benchmark
+        from .train.steps import make_forward_fn
+
+        seg = int(config.DATA.SEGMENT * config.DATA.TARGET_SR)
+        bsz = config.DATA.BATCH_SIZE
+        x = torch.zeros((bsz, 1, seg), dtype=torch.float32, device=device)
+        hf = torch.full((bsz,), 171, dtype=torch.int64, device=device)
+        stats = benchmark(make_forward_fn(generator), x, hf, iters=10,
+                          chain=lambda out, v, h: (v + 1e-6 * out, h))
+        segs_per_sec = bsz / stats["seconds_per_call"]
+        stats.update(batch=bsz, segments_per_second=segs_per_sec,
+                     x_real_time=segs_per_sec * config.DATA.SEGMENT, device=str(device))
+        logger.info(f"throughput: {segs_per_sec:.1f} segments/s "
+                    f"({stats['x_real_time']:.0f}x real-time, batch {bsz})")
+        return mode, stats
+
+    if config.INFERENCE_MODE:
+        from .train.inferencer import Inferencer
+
+        load_generator_weights(config, generator, logger)
+        inferencer = Inferencer(config, generator, logger, device=device)
+        if os.path.isdir(args.input):
+            inferencer.infer_directory(args.input)
+        else:
+            inferencer.infer_file(args.input)
+        return mode, inferencer
+
+    if config.EVAL_MODE:
+        from .train.tester import Tester
+
+        loader = get_loaders(config, logger, dataset=dataset)
+        load_generator_weights(config, generator, logger)
+        target_sr, input_sr = config.TAG.split("_")[1], config.TAG.split("_")[0]
+        out_dir = os.path.join(config.TEST.RESULTS_DIR, config.MODEL.NAME, target_sr, input_sr)
+        tester = Tester(config, generator, loader, logger, output_dir=out_dir, device=device)
+        tester.evaluate()
+        return mode, tester
+
+    # -- training --------------------------------------------------------------
+    from .core.wandb_utils import finish_wandb_run, init_wandb_run
+    from .train.trainer import Trainer
+
+    models = {"generator": generator, **get_discriminators(config, device)}
+    logger.info(f"Models: {list(models)}")
+    wandb_run = init_wandb_run(config, logger, resume=bool(config.MODEL.RESUME_PATH))
+    train_loader, valid_loader = get_loaders(config, logger, dataset=dataset)
+    trainer = Trainer(config, models, train_loader, valid_loader, logger)
+    try:
+        trainer.train()
+    finally:
+        finish_wandb_run(wandb_run)
+        trainer.writer.close()
+    return mode, trainer
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

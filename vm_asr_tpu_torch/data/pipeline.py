@@ -1,0 +1,239 @@
+"""Host input pipeline: fixed-shape batches with degradation on the fly
+(port of vm_asr_tpu/data/pipeline.py; reference data_loader/data_loaders.py:
+25-79 for the loader factory and 90/10 random split, 349-520 for load, pad
+and random-rate degradation).
+
+- All randomness (the input rate, the filter, the padding noise) is drawn on
+  the host from numpy ``Generator``s, as the reference draws it in its
+  DataLoader workers. Item j of batch bi draws from
+  ``default_rng([base_seed, bi·B + j])``, and an epoch's order from
+  ``default_rng(seed + epoch)``, so batches are bitwise the JAX package's.
+- Every training batch has the same shape (SEGMENT seconds at TARGET_SR).
+- A thread pool overlaps scipy's filtering and resampling with the device's
+  work. The threads touch numpy only: ``batch_to_device`` runs on the
+  caller's thread, so no CUDA call is made from a pipeline thread.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..dsp.audio import resample_audio
+from ..dsp.degrade import degrade
+
+
+@dataclass
+class Batch:
+    wave_input: np.ndarray   # (B, 1, T) float32
+    wave_target: np.ndarray  # (B, 1, T) float32
+    highcut: np.ndarray      # (B,) int32
+    names: List[str]
+    pad_lengths: np.ndarray  # (B,) int32
+
+
+def batch_to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
+    """{"wave_input", "wave_target", "highcut"} on ``device``: copied from
+    pinned host memory without blocking when the device is a card, highcut
+    as int64 (the counterpart of the JAX package's ``shard_batch``)."""
+    device = torch.device(device)
+    out = {}
+    for key, arr, dtype in (("wave_input", batch.wave_input, torch.float32),
+                            ("wave_target", batch.wave_target, torch.float32),
+                            ("highcut", batch.highcut, torch.int64)):
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[key] = t.to(device, non_blocking=True)
+    return out
+
+
+class DegradingSampler:
+    """Turns dataset items into fixed-length (input, target, highcut) tuples."""
+
+    def __init__(self, dataset, config, training: bool = True,
+                 input_sr: Optional[int] = None):
+        self.dataset = dataset
+        self.config = config
+        self.training = training
+        self.input_sr = input_sr
+        d = config.DATA
+        self.target_sr = d.TARGET_SR
+        self.num_frames = int(d.SEGMENT * self.target_sr)
+        self.pad_eps = d.PAD_WHITENOISE
+        self.n_fft = d.STFT.N_FFT
+        self.filters = [tuple(f) for f in (d.LPF.LPF_TRAIN if training else d.LPF.LPF_TEST)]
+        self.random_resample = list(d.RANDOM_RESAMPLE)
+        self.weighted = d.WEIGHTED_SR
+
+    def _draw_input_sr(self, rng: np.random.Generator) -> int:
+        if self.input_sr is not None:
+            return self.input_sr
+        if len(self.random_resample) == 1:
+            return int(self.random_resample[0])
+        if self.weighted.ENABLE:
+            # Lower rates drawn more often (reference data_loaders.py:440-447).
+            ridx = rng.choice(len(self.weighted.RANGES), p=self.weighted.WEIGHTS)
+            lo, hi = self.weighted.RANGES[ridx]
+        else:
+            lo, hi = self.random_resample[0], self.random_resample[-1]
+        return int(rng.integers(lo, hi + 1))
+
+    def _fit_length(self, audio: np.ndarray, rng: np.random.Generator
+                    ) -> Tuple[np.ndarray, int]:
+        """Train: crop or pad with white noise to exactly one segment. Eval:
+        pad to a segment multiple and keep the whole clip, which the Tester
+        cuts with unfold/fold (reference data_loaders.py:371-389,
+        tester.py:106-140)."""
+        n = self.num_frames
+        t = audio.shape[-1]
+        if self.training and t > n:
+            return audio[:n], 0
+        pad = n - t if self.training else (n - t % n) % n
+        if pad:
+            noise = rng.standard_normal(pad).astype(np.float32) * self.pad_eps
+            audio = np.concatenate([audio, noise], axis=-1)
+        return audio, pad
+
+    def sample(self, index: int, rng: np.random.Generator):
+        audio, sr, name = self.dataset.load(index)
+        if sr != self.target_sr:
+            audio = resample_audio(audio, sr, self.target_sr)
+        audio, pad = self._fit_length(audio.astype(np.float32), rng)
+
+        sr_in = self._draw_input_sr(rng)
+        filt = self.filters[rng.integers(len(self.filters))]
+        x, highcut = degrade(audio, self.target_sr, sr_in, filt, self.n_fft)
+        return x, audio, highcut, name, pad
+
+
+class DataPipeline:
+    """Shuffled, threaded, fixed-shape batch iterator."""
+
+    def __init__(self, sampler: DegradingSampler, batch_size: int,
+                 indices: Optional[Sequence[int]] = None, shuffle: bool = True,
+                 seed: int = 123, num_workers: int = 4, drop_last: bool = True,
+                 prefetch: int = 2):
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.indices = list(indices if indices is not None else range(len(sampler.dataset)))
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n, b = len(self.indices), self.batch_size
+        return n // b if self.drop_last else -(-n // b)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _epoch_indices(self) -> List[int]:
+        idx = list(self.indices)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return idx
+
+    def __iter__(self) -> Iterator[Batch]:
+        idx = self._epoch_indices()
+        if self.drop_last:
+            idx = idx[: len(self) * self.batch_size]
+        batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        base_seed = (self.seed * 1_000_003 + self._epoch) % (2**31)
+
+        def make_batch(bi: int, members: List[int]) -> Batch:
+            outs = [self.sampler.sample(index, np.random.default_rng(
+                [base_seed, bi * self.batch_size + j])) for j, index in enumerate(members)]
+            xs, ys, hcs, names, pads = zip(*outs)
+            return Batch(
+                wave_input=np.stack(xs)[:, None, :],
+                wave_target=np.stack(ys)[:, None, :],
+                highcut=np.asarray(hcs, np.int32),
+                names=list(names),
+                pad_lengths=np.asarray(pads, np.int32),
+            )
+
+        # At most num_workers + prefetch batches are submitted and not yet
+        # handed over: one more is submitted as each is yielded, so a long
+        # epoch holds a bounded number of batches in host memory. A worker's
+        # exception is raised here, by its future, in the consumer's thread.
+        window = self.num_workers + self.prefetch
+        pending: "deque[Future]" = deque()
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            try:
+                for bi, members in enumerate(batches):
+                    if len(pending) == window:
+                        yield pending.popleft().result()
+                    pending.append(pool.submit(make_batch, bi, members))
+                while pending:
+                    yield pending.popleft().result()
+            finally:
+                for f in pending:
+                    f.cancel()
+
+
+def train_valid_split(n: int, valid_split: float, seed: int = 42
+                      ) -> Tuple[List[int], List[int]]:
+    """The 90/10 random split with a fixed generator
+    (reference data_loaders.py:31-38, torch.random_split(seed=42))."""
+    perm = np.random.default_rng(seed).permutation(n)
+    n_valid = int(n * valid_split)
+    return list(perm[n_valid:]), list(perm[:n_valid])
+
+
+def get_loaders(config, logger=None, dataset=None):
+    """Loader factory (reference data_loaders.py:25-79).
+
+    Returns (train pipeline, valid pipeline) in training mode, or one test
+    pipeline in eval mode. ``dataset`` may be given (e.g. SyntheticVCTK);
+    otherwise it is the trimmed VCTK wav tree under DATA.DATA_PATH."""
+    from .vctk import VCTKDataset
+
+    if config.DATA.get("PIPELINE", "threads") == "grain":
+        raise NotImplementedError(
+            "DATA.PIPELINE grain is not ported yet (ROADMAP queue A: the grain → "
+            "DataLoader pipeline); use the default threads pipeline")
+    training = not config.EVAL_MODE
+    if dataset is None:
+        root = f"{config.DATA.DATA_PATH.rstrip('/')}/{config.DATA.FLAC2WAV.DST_PATH}"
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"trimmed VCTK wav tree not found at {root}; converting the FLAC corpus "
+                "is not ported yet (ROADMAP queue A: FLAC conversion and native/). "
+                "Convert it with the JAX package (python -m vm_asr_tpu.cli), or pass "
+                "--synthetic_data")
+        dataset = VCTKDataset(
+            root,
+            training=training,
+            mic_id=config.DATA.MIC_ID,
+            train_split=tuple(config.DATA.TRAIN_SPLIT),
+            use_quantity=config.DATA.USE_QUANTITY,
+            seed=config.SEED,
+        )
+
+    if training:
+        sampler = DegradingSampler(dataset, config, training=True)
+        tr_idx, va_idx = train_valid_split(len(dataset), config.DATA.VALID_SPLIT)
+        common = dict(batch_size=config.DATA.BATCH_SIZE, seed=config.SEED,
+                      num_workers=config.DATA.NUM_WORKERS)
+        train = DataPipeline(sampler, indices=tr_idx, shuffle=config.DATA.SHUFFLE, **common)
+        valid = DataPipeline(sampler, indices=va_idx, shuffle=False, **common)
+        if logger:
+            logger.info(f"Data: {len(tr_idx)} train / {len(va_idx)} valid samples")
+        return train, valid
+
+    # Eval: batch 1, in order, the input rate from the TAG
+    # (reference data_loaders.py:67-76, 455).
+    input_sr = int(config.TAG.split("_")[0])
+    sampler = DegradingSampler(dataset, config, training=False, input_sr=input_sr)
+    return DataPipeline(sampler, batch_size=1, shuffle=False, seed=config.SEED,
+                        num_workers=config.DATA.NUM_WORKERS, drop_last=False)

@@ -9,7 +9,9 @@ from .steps import (
     make_train_step,
     segment_bucket_counts,
 )
+from .tester import Tester
+from .trainer import Trainer
 
-__all__ = ["DiscState", "GenState", "Inferencer", "Optimizer", "SEG_BUCKETS",
-           "bucketed_forward", "make_eval_step", "make_forward_fn", "make_optimizer",
-           "make_schedule", "make_train_step", "segment_bucket_counts"]
+__all__ = ["DiscState", "GenState", "Inferencer", "Optimizer", "SEG_BUCKETS", "Tester",
+           "Trainer", "bucketed_forward", "make_eval_step", "make_forward_fn",
+           "make_optimizer", "make_schedule", "make_train_step", "segment_bucket_counts"]

@@ -140,6 +140,20 @@ class Optimizer:
         self.count += 1
         return True
 
+    def state_dict(self) -> dict:
+        """The torch optimizer's state, the update count (the schedule's
+        position), and the accumulation's call count and running mean."""
+        return {"tx": self.tx.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.tx.load_state_dict(state["tx"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self.acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype) for a, p in zip(acc, self.params)]
+
 
 def make_optimizer(config, steps_per_epoch: int, module: torch.nn.Module) -> Optimizer:
     """AdamW (default) or SGD over ``module``'s parameters, with the no-decay
