@@ -21,8 +21,8 @@ raising on failure:
    three one-launch scans (fused forward, recurrence forward and reverse)
    also run on a grid capped to a few CTAs, so that their tiles arrive in
    another order, and must give the same bits again. One recurrence call
-   must be one kernel on the device. The backward is also timed with a
-   cold L2.
+   must be one kernel on the device, launched once and right. The backward
+   is also timed with a cold L2.
 3b. look-back window: the three one-launch scans' device time per train
    step and per batch-1 forward with the look-back's checkpoint spacing W
    at 8, 16, 32 and 64 (each wrapper's own W is the one it ships).
@@ -39,6 +39,9 @@ raising on failure:
    warm-up and 10 timed steps on synthetic speech, with launch counts, then
    one profiled step by kernel (each wrapper's kernels by their exported
    names) and one by op and input shapes.
+8b. scan routes: host time a call of each scan wrapper as an autograd
+   Function (the main path) and as a dispatcher op (checkpointed blocks),
+   and the train step with every SS2D on each route.
 9. cli: the port's own entry point, vm_asr_tpu_torch.cli, in-process at the
    flagship's full width and depth on the synthetic corpus (16 kHz input):
    train one epoch (5 steps at batch 4, one validation batch) with
@@ -47,7 +50,20 @@ raising on failure:
    batch 4, with exact launch counts for each; plus the time of one
    DegradingSampler.sample at input rates drawn as the flagship config
    draws them.
-10. the kernels line, the card line, and the result line.
+10. variants: the remaining generator variants at the flagship's width
+   (dims 16, depths 2-2-2-2, n_fft 1024, hop 240): the SINGLE, P2M and M2P
+   configs loaded from their YAML, then MambaUNet (VM_ASR_BASIC), the
+   latent layout (dims 16..256), the v2 and v1 heads, patch-embed v1, GMLP
+   and FUSE_STREAMS, each one batch-1 segment in fp32 with the kernels
+   against the plain scan, with launch counts derived from the model's
+   SS2Ds and routing, and its bf16 forward timed; SINGLE through the CLI
+   (train 4 steps with validation, checkpoints and one profiled step,
+   --eval of the best checkpoint on two clips, --inference on one) with
+   exact launch counts; the latent layout's fp32 generator gradient
+   (the fused backward at D = 512) against the plain-fp64-scan witness; and
+   a SINGLE generator step with and without USE_CHECKPOINT (gradients,
+   launches and peak memory).
+11. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -142,6 +158,11 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 # log-magnitude exp2 (8.0e-7 measured on an H100); a wrong kernel moves the
 # output by O(1).
 MODEL_REL_TOL = 1e-5
+# USE_CHECKPOINT's bf16 step against the same step without it, in bars of
+# the train-gradient check: bf16 runs with it against one without, and two
+# without it, read 2.42-4.15 of the bar on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md).
+BF16_CKPT_BARS = 10.0
 # Backward kernels vs plain backward, elementwise. fp32: the JAX package's bar
 # for the scan gradients (tests/test_fused_scan.py:50-51); the adjoint scans
 # associate differently (the recurrence's reverse dh sums up to ~1/(1 - a) ≈
@@ -467,12 +488,33 @@ def lr_inputs(rows, l, d, gen, seed):
     return a, b, linear_recurrence_plain(a, b), torch.randn(rows, l, d, device="cuda", generator=g)
 
 
-def one_kernel(name, fn, kernels):
-    """The device events of one call of ``fn`` are one kernel of ``kernels``."""
-    events = device_kernels(fn)
-    names = [e[0] for e in events]
-    if len(names) != 1 or names[0] not in kernels["scan"]:
-        raise AssertionError(f"{name}: one call ran {names} on the device, not one kernel")
+def one_kernel(name, fn, kernels, wrapper, check, tries: int = 3) -> int:
+    """One call of ``fn`` runs one kernel of ``kernels``: under torch.profiler
+    the call's device events are that one kernel, ``wrapper``'s launch count
+    moves by one across it, and ``check`` holds its result to the plain
+    version. A capture that holds no device event at all is taken again (at
+    most ``tries`` captures), and only when its call did launch the kernel
+    once and its result was right; returns the number of such captures."""
+    fn()
+    torch.cuda.synchronize()
+    empty = 0
+    for _ in range(tries):
+        before = wrapper.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        launched = wrapper.launches - before
+        check(out)
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if launched != 1 or (names and (len(names) != 1 or names[0] not in kernels["scan"])):
+            raise AssertionError(f"{name}: one call launched {launched} kernels and ran "
+                                 f"{names} on the device, not one kernel")
+        if names:
+            return empty
+        empty += 1
+    raise AssertionError(f"{name}: {tries} captures of one call held no device event")
 
 
 def check_lr(rows, l, d, gen):
@@ -485,14 +527,15 @@ def check_lr(rows, l, d, gen):
     name = f"linear_recurrence {(rows, l, d)}"
     check_same(name, *runs)
     err = check_close(name, h, ref, FP32_TOL)
-    one_kernel(name, lambda: linear_recurrence(a, b), LR_KERNELS)
+    empty = one_kernel(name, lambda: linear_recurrence(a, b), LR_KERNELS, linear_recurrence,
+                       lambda out: check_close(name, out, ref, FP32_TOL))
     nbytes = 3 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_OPS * rows * l * d)
     dev, passes = device_split(lambda: linear_recurrence(a, b), LR_KERNELS)
     return dict(kernel="linear_recurrence", shape=[rows, l, d], dtype="torch.float32",
                 max_abs_err=err, tol=FP32_TOL, window=lr_tile_layout(rows, l, d).window,
-                bytes=nbytes, ms=cuda_ms(lambda: linear_recurrence(a, b)), device_ms=dev,
-                passes=passes,
+                empty_captures=empty, bytes=nbytes, ms=cuda_ms(lambda: linear_recurrence(a, b)),
+                device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: linear_recurrence_plain(a, b), reps=3, per=3),
                 bound_ms=bms, bound_by=by)
 
@@ -510,17 +553,100 @@ def check_lr_reverse(rows, l, d, gen):
     check_same(name, *runs)
     err = max(check_close(f"{name} {n}", x, y, BWD_FP32_TOL)
               for n, x, y in zip(("da", "db"), got, ref))
-    one_kernel(name, kernel, LR_REVERSE_KERNELS)
+    empty = one_kernel(name, kernel, LR_REVERSE_KERNELS, linear_recurrence_reverse,
+                       lambda out: [check_close(f"{name} {n}", x, y, BWD_FP32_TOL)
+                                    for n, x, y in zip(("da", "db"), out, ref)])
     nbytes = 5 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_REV_OPS * rows * l * d)
     dev, passes = device_split(kernel, LR_REVERSE_KERNELS)
     return dict(kernel="linear_recurrence_reverse", shape=[rows, l, d], dtype="torch.float32",
                 max_abs_err=err, tol=BWD_FP32_TOL,
-                window=lr_tile_layout(rows, l, d, True).window, bytes=nbytes,
+                window=lr_tile_layout(rows, l, d, True).window, empty_captures=empty,
+                bytes=nbytes,
                 ms=cuda_ms(kernel), device_ms=dev, passes=passes,
                 plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
                                  reps=3, per=3),
                 bound_ms=bms, bound_by=by)
+
+
+def route_host_us(gen, rounds: int = 4, calls: int = 50):
+    """Host µs per call of each kernel wrapper by its two routes: the autograd
+    Function (every block that is not checkpointed) and the dispatcher op
+    (checkpointed blocks), at the flagship train step's bf16 batch-4 shapes
+    with inputs that need a gradient; the forward alone and the forward with
+    its backward (torch.autograd.grad). Each time is the host's clock over
+    ``calls`` calls, taken before the device is waited for; the routes
+    alternate, and which goes first alternates from round to round. Medians
+    over the rounds, and the sum over one step's calls."""
+    cases = []
+    for (l, kd) in FUSED_CALLS:
+        args, dy = fused_inputs(TRAIN_BATCH, l, kd, torch.bfloat16, gen)
+        for t in args[:7]:
+            t.requires_grad_(True)
+        cases.append((f"fused {(TRAIN_BATCH, l, kd)}", FUSED_CALLS[(l, kd)], args[:7], dy,
+                      lambda as_op, args=args: selective_scan_fused(*args, as_op=as_op)))
+    for (l, d) in LR_CALLS:
+        a, b, _, dy = lr_inputs(TRAIN_BATCH, l, d, gen, 1_000_037)
+        a.requires_grad_(True)
+        b.requires_grad_(True)
+        cases.append((f"recurrence {(TRAIN_BATCH, l, d)}", LR_CALLS[(l, d)], (a, b), dy,
+                      lambda as_op, a=a, b=b: linear_recurrence(a, b, as_op=as_op)))
+
+    def host_us(fn, inputs, dy):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        fwd = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            torch.autograd.grad(fn(), inputs, dy)
+        both = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+        return fwd, both
+
+    out = {}
+    for name, per_step, inputs, dy, fn in cases:
+        runs = {False: [], True: []}
+        for as_op in (False, True):  # warm-up
+            host_us(lambda: fn(as_op), inputs, dy)
+        for r in range(rounds):
+            for as_op in ((False, True) if r % 2 == 0 else (True, False)):
+                runs[as_op].append(host_us(lambda: fn(as_op), inputs, dy))
+        out[name] = dict(calls_per_step=per_step, **{
+            f"{route}_{part}_us": statistics.median(x[i] for x in runs[as_op])
+            for route, as_op in (("function", False), ("op", True))
+            for i, part in enumerate(("fwd", "fwd_bwd"))})
+    for part in ("fwd", "fwd_bwd"):
+        out[f"step_{part}_delta_us"] = sum(
+            c["calls_per_step"] * (c[f"op_{part}_us"] - c[f"function_{part}_us"])
+            for c in out.values() if isinstance(c, dict))
+    return out
+
+
+def route_step_ms(model, run, rounds: int = 4, per: int = 3):
+    """The flagship train step (CUDA events, synchronised per step) with every
+    SS2D's scans on the autograd Functions (the main path) and on the
+    dispatcher ops (the route of a checkpointed block, here without the
+    checkpoint), alternating as route_host_us does; medians per route."""
+    ss2d = [m for m in model.modules() if isinstance(m, SS2D)]
+    times = {False: [], True: []}
+    for r in range(rounds):
+        for flag in ((False, True) if r % 2 == 0 else (True, False)):
+            for m in ss2d:
+                m.checkpointed = flag
+            for i in range(per):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                run(i)
+                end.record()
+                torch.cuda.synchronize()
+                times[flag].append(start.elapsed_time(end))
+    for m in ss2d:
+        m.checkpointed = False
+    return dict(function_ms=statistics.median(times[False]),
+                op_ms=statistics.median(times[True]), steps_per_route=rounds * per)
 
 
 def window_sweep(gen):
@@ -771,6 +897,399 @@ def cli_phase(smi: str, bare_idle):
     return report, train_counts
 
 
+VARIANT_YAMLS = {"single": "vm_asr_48k_MPD_SINGLE.yaml", "p2m": "vm_asr_48k_MPD_P2M.yaml",
+                 "m2p": "vm_asr_48k_MPD_M2P.yaml"}
+# The other generator options, each on the flagship config: MODEL options
+# set away from the flagship's.
+VARIANT_OPTIONS = {
+    "MambaUNet (VM_ASR_BASIC)": {"MODEL.NAME": "VM_ASR_BASIC"},
+    "latent dims (16, 32, 64, 128, 256)": {"MODEL.VSSM.DIMS": [16, 32, 64, 128, 256]},
+    "head v2": {"MODEL.VSSM.OUTPUT": "v2"},
+    "head v1": {"MODEL.VSSM.OUTPUT": "v1"},
+    "patch embed v1": {"MODEL.VSSM.PATCHEMBED": "v1"},
+    "GMLP": {"MODEL.VSSM.GMLP": True},
+    "FUSE_STREAMS": {"MODEL.VSSM.FUSE_STREAMS": True},
+}
+LATENT = "latent dims (16, 32, 64, 128, 256)"
+
+
+def variant_config(yaml_name: str, amp: bool, gan: bool = False, overrides=None):
+    """A shipped config loaded from its YAML (PyYAML required), with the
+    overrides of ``flagship_config`` and ``overrides`` ({dotted key: value};
+    a list DIMS cannot come through ``--opts``, whose values take the type
+    of the default)."""
+    overrides = overrides or {}
+    c = load_config(str(ROOT / "configs" / yaml_name), [
+        "TRAIN.ADVERSARIAL.ENABLE", str(gan), "AMP_ENABLE", str(amp), "OUTPUT",
+        str(OUT / "logs"), "TAG", "16000_48000", "INFERENCE.RESULTS_DIR",
+        str(OUT / "results")]).defrost()
+    for key, value in overrides.items():
+        *path, leaf = key.split(".")
+        node = c
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    c.freeze()
+    v = c.MODEL.VSSM
+    dims = 16 if "MODEL.VSSM.DIMS" in overrides else v.DIMS
+    got = (dims, list(v.DEPTHS), c.DATA.STFT.N_FFT, c.DATA.STFT.HOP_LENGTH, c.DATA.TARGET_SR,
+           c.DTYPE.COMPUTE)
+    if got != (16, [2, 2, 2, 2], 1024, 240, 48000, "bfloat16"):
+        raise AssertionError(f"{yaml_name}: not the flagship's widths: {got}")
+    return c
+
+
+def scan_launches(model) -> dict:
+    """Scan launches of one forward of ``model``, derived from its SS2Ds and
+    the routing of ops/scan_api.py (the fused kernel where N = 1 and
+    K·D ≥ 128, else one recurrence launch per state channel) and from how
+    often each stage runs: once, but the shared mag decoder twice where the
+    phase stream goes through it unfused (concat skips, no phase-decoder
+    fix, no FUSE_STREAMS)."""
+    shared = getattr(model, "core_phase", None) is not None \
+        and not model.phase_decoders_used and not model.fuse_streams
+    out = Counter(selective_scan_fused=0, linear_recurrence=0)
+    for name, child in model.named_children():
+        calls = 2 if shared and name == "layers_decoder_mag" else 1
+        for m in child.modules():
+            if not isinstance(m, SS2D):
+                continue
+            if m.d_state == 1 and K * m.d_inner >= 128:
+                out["selective_scan_fused"] += calls
+            else:
+                out["linear_recurrence"] += calls * m.d_state
+    return dict(out)
+
+
+def variant_forward(label, cfg32, cfg16, smi):
+    """One batch-1 flagship segment through the variant in fp32 with the
+    kernels and with the plain scan (TF32 off), with the exact launches of
+    the kernels' forward; then the bf16 forward's wall time (CUDA events) and
+    device busy time (torch.profiler)."""
+    model = get_generator(cfg32, "cuda")
+    want = scan_launches(model)
+    seg = int(cfg32.DATA.SEGMENT * cfg32.DATA.TARGET_SR)
+    x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=3)[None, None]).cuda()
+    hf = torch.tensor([171], device="cuda")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        zero_counts()
+        y_kernel = model(x, hf)
+        torch.cuda.synchronize()
+        got = read_counts()
+        set_scan_impl(model, "plain")
+        y_plain = model(x, hf)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = ((y_kernel - y_plain).abs().max() / y_plain.abs().max()).item()
+    finite = bool(torch.isfinite(y_kernel).all())
+    want_all = dict(want, selective_scan_fused_bwd=0, linear_recurrence_reverse=0)
+    model16 = get_generator(cfg16, "cuda")
+    model16.load_state_dict(model.state_dict())
+    del model, y_kernel, y_plain
+    fwd = lambda: model16(x, hf)  # noqa: E731
+    with torch.inference_mode():
+        wall = cuda_ms(fwd, reps=5, per=1)
+        events = device_kernels(fwd)
+    busy = busy_us(events) / 1e3 if events else None
+    row = dict(variant=label, launches=got, want=want_all, rel_err=rel, tol=MODEL_REL_TOL,
+               finite=finite, params=sum(p.numel() for p in model16.parameters()),
+               bf16_wall_ms=wall, bf16_device_busy_ms=busy, device_events=len(events))
+    print(f"{label}: {row['params']} parameters; fp32 max|kernel - plain| / max|plain| "
+          f"{rel:.3e} (tol {MODEL_REL_TOL}), finite {finite}; launches per forward {got} "
+          f"(derived {want}); bf16 batch-1 forward {wall:.2f} ms wall (CUDA events), "
+          f"device busy {fmt_ms(busy)} in {len(events)} events  [{smi}]")
+    if not finite or not rel <= MODEL_REL_TOL or got != want_all:
+        raise AssertionError(f"variant {label} failed: {row}")
+    return row, want
+
+
+def checkpoint_memory_check(smi):
+    """A SINGLE-config generator step (loss and gradient, batch 4, DropPath
+    on) with and without MODEL.VSSM.USE_CHECKPOINT, from one seed and batch:
+    in fp32 (TF32 off) the gradients within the train-gradient bar of each
+    other; in bf16, the config's compute dtype, within BF16_CKPT_BARS of it
+    (printed beside the gap of two runs without the checkpoint). In both the
+    scans' forward
+    launches no more often with the checkpoint (its policy keeps their
+    outputs), and the peak memory of each run."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    report = {}
+    for amp in (False, True):
+        # fp32 in full fp32 (TF32 off), bf16 with the process's settings.
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+            tf32 if amp else (False, False)
+        runs, batch = {}, None
+        for ckpt in (False, True, "again"):
+            cfg = variant_config(VARIANT_YAMLS["single"], amp=amp, gan=True,
+                                 overrides={"MODEL.VSSM.USE_CHECKPOINT": ckpt is True})
+            model = get_generator(cfg, "cuda")
+            step = make_train_step(cfg, model, get_discriminators(cfg, "cuda"))
+            if batch is None:
+                batch = train_batch(cfg, seeds=range(40, 40 + TRAIN_BATCH))
+            for _ in range(2):  # the first pass warms cuDNN and the allocator
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                zero_counts()
+                total, _, _ = step.gen_loss_fn(batch["wave_input"], batch["wave_target"],
+                                               batch["highcut"],
+                                               torch.Generator(device="cuda").manual_seed(7))
+                grads = torch.autograd.grad(total, list(model.parameters()),
+                                            allow_unused=True, materialize_grads=True)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                counts = read_counts()
+            runs[ckpt] = dict(grads=grads, peak_gb=peak / 1e9, launches=counts,
+                              loss=total.item())
+            names = [n for n, _ in model.named_parameters()]
+            del model, step, total
+        top = max(g.abs().max().item() for g in runs[False]["grads"])
+
+        def gap(a, b):
+            r = [((x - y).abs().max() / (GRAD_REL * y.abs().max() + GRAD_FLOOR * top)).item()
+                 for x, y in zip(a, b)]
+            i = int(np.argmax(r))
+            return r[i], names[i]
+
+        worst, worst_name = gap(runs[True]["grads"], runs[False]["grads"])
+        noise, noise_name = gap(runs["again"]["grads"], runs[False]["grads"])
+        dtype = "bf16" if amp else "fp32, TF32 off"
+        print(f"USE_CHECKPOINT, {dtype}: loss {runs[True]['loss']:.6f} vs "
+              f"{runs[False]['loss']:.6f} without; gradients apart by {worst:.3e} of the bar "
+              f"({GRAD_REL} of each tensor's scale + {GRAD_FLOOR} of the largest; "
+              f"{worst_name}), two runs without it {noise:.3e} ({noise_name}); launches "
+              f"{runs[True]['launches']} vs {runs[False]['launches']} without; peak memory above "
+              f"the weights {runs[True]['peak_gb']:.3f} GB vs {runs[False]['peak_gb']:.3f} GB "
+              f"without (torch.cuda.max_memory_allocated, batch {TRAIN_BATCH})  [{smi}]")
+        report[dtype] = dict(grad_ratio=worst, grad_ratio_tensor=worst_name, rerun_ratio=noise,
+                             peak_gb={str(k): v["peak_gb"] for k, v in runs.items()},
+                             launches={str(k): v["launches"] for k, v in runs.items()},
+                             loss={str(k): v["loss"] for k, v in runs.items()})
+        # The fp32 run is the gate at 1.0 of the bar. bf16 gradients differ
+        # from run to run by more than that bar (the backward's atomics): the
+        # bf16 gap has a fixed limit of BF16_CKPT_BARS, which a recompute that
+        # drew other masks or lost a scan output, moving a gradient by O(1)
+        # of its scale (~300 bars), still breaks.
+        limit = BF16_CKPT_BARS if amp else 1.0
+        if not worst <= limit or runs[True]["launches"] != runs[False]["launches"]:
+            raise AssertionError(f"USE_CHECKPOINT changed the step ({dtype})")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return report
+
+
+def single_cli_phase(smi, per_fwd):
+    """configs/vm_asr_48k_MPD_SINGLE.yaml through vm_asr_tpu_torch.cli,
+    in-process: train one epoch (4 steps at batch 4, one validation batch,
+    step 2 profiled) with checkpoints, --eval of the best checkpoint on two
+    two-segment clips, --inference on one one-segment clip; exact launch
+    counts for each from ``per_fwd``, the launches of one forward."""
+    cfg_path = str(ROOT / "configs" / VARIANT_YAMLS["single"])
+    work = OUT / "cli_single"
+    runs = ROOT / "build" / "chip_smoke_cli_single"
+    for d in (work, runs):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    run_dir = runs / "DualStreamInteractiveMambaUNet" / "chip"
+    f, r = per_fwd["selective_scan_fused"], per_fwd["linear_recurrence"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        zero_counts()
+        mode, trainer = cli.run(["--cfg", cfg_path, "--tag", "chip", "--input_sr", "16000",
+                                 "--synthetic_data", "--synthetic_n", "20", "--opts",
+                                 "TRAIN.EPOCHS", "1", "PROFILE_STEPS", "1", "DATA.VALID_SPLIT",
+                                 "0.2", "DATA.NUM_WORKERS", "4", "TENSORBOARD.ENABLE", "False",
+                                 "OUTPUT", str(runs)])
+        train_counts = read_counts()
+        first = trainer.timings[-1]
+        n, v = first["steps"], len(trainer.valid_loader)
+        want = dict(selective_scan_fused=f * (n + v), selective_scan_fused_bwd=f * n,
+                    linear_recurrence=r * (n + v), linear_recurrence_reverse=r * n)
+        files = sorted(p.name for p in run_dir.glob("checkpoint-*.pth"))
+        steps = first["step_s"]
+        prof = first["profile"]
+        warm_ms = 1e3 * statistics.median(steps[2:])
+        busy = prof["device_busy_ms"]
+        idle = None if busy is None else 1 - busy / warm_ms
+        print(f"SINGLE cli train: mode {mode}, {n} steps, {v} validation batch(es), launches "
+              f"{train_counts} (derived {want}), checkpoints {files}; s/it "
+              f"{[round(s, 4) for s in steps]} (host clock; step 1 cold, step 2 profiled), "
+              f"{warm_ms / 1e3:.4f} median over steps 3..{n}; profiled step device busy "
+              f"{fmt_ms(busy)} in {prof['device_events']} events, idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'} of the median unprofiled "
+              f"step; epoch {first['epoch_s']:.3f} s, validation {first['valid_s']:.3f} s, "
+              f"checkpoint writes {first['save_ms']:.1f} ms  [{smi}]")
+        if (mode, n, v) != ("train", 4, 1) or train_counts != want or files != [
+                f"checkpoint-{k}-{m}.pth" for k in ("best", "latest") for m in ("G", "mpd")] \
+                or not all(train_counts.values()):
+            raise AssertionError(f"SINGLE cli train: want 4 steps, 1 validation batch, "
+                                 f"launches {want}; got {n}, {v}, {train_counts}, {files}")
+        del trainer
+
+        zero_counts()
+        mode, tester = cli.run(["--cfg", cfg_path, "--eval", "--tag", "16000_48000", "--resume",
+                                str(run_dir), "--synthetic_data", "--synthetic_n", "2", "--opts",
+                                "TENSORBOARD.ENABLE", "False", "TEST.RESULTS_DIR",
+                                str(work / "results")])
+        eval_counts = read_counts()
+        shapes = {tester._num_segments(row["samples"]) for row in tester.rows}
+        forwards = len(tester.rows) + 1 + 3 * 3 * tester_module.MEASURE_ITERS
+        eval_want = dict(selective_scan_fused=f * forwards, selective_scan_fused_bwd=0,
+                         linear_recurrence=r * forwards, linear_recurrence_reverse=0)
+        for row in tester.rows:
+            print(f"SINGLE cli eval {row['name']}: rtf {row['rtf']:.4f}, rtf_compute "
+                  f"{row['rtf_compute']:.4f}, snr {row['snr']:.3f}, lsd {row['lsd']:.3f} "
+                  f"(lsd_input {row['lsd_input']:.3f})  [{smi}]")
+        print(f"SINGLE cli eval: {len(tester.rows)} clips of {shapes} segments, launches "
+              f"{eval_counts} (derived {eval_want})")
+        if mode != "eval" or len(tester.rows) != 2 or shapes != {2} or eval_counts != eval_want \
+                or not all(np.isfinite(row["lsd"]) for row in tester.rows):
+            raise AssertionError(f"SINGLE cli eval: want 2 two-segment clips and launches "
+                                 f"{eval_want}; got {shapes}, {eval_counts}")
+
+        clip = work / "clip_16k.wav"
+        save_wav(str(clip), speech_like(2.555, 16000, seed=50), 16000)
+        zero_counts()
+        mode, inferencer = cli.run(["--cfg", cfg_path, "--inference", "--tag", "16000_48000",
+                                    "--resume", str(run_dir), "--input", str(clip), "--opts",
+                                    "INFERENCE.RESULTS_DIR", str(work / "inference")])
+        infer_counts = read_counts()
+        infer_want = dict(selective_scan_fused=f, selective_scan_fused_bwd=0,
+                          linear_recurrence=r, linear_recurrence_reverse=0)
+        wavs = sorted(p.name for p in (work / "inference").rglob("*.wav"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inferencer.infer_file(str(clip), quiet=True)
+        torch.cuda.synchronize()
+        rtf = (time.perf_counter() - t) / 2.555
+        print(f"SINGLE cli inference: mode {mode}, launches {infer_counts} (derived "
+              f"{infer_want}), wrote {wavs}; a second infer_file of the 2.555 s clip: RTF "
+              f"{rtf:.4f} (host clock, synchronised)  [{smi}]")
+        if mode != "inference" or infer_counts != infer_want or not wavs \
+                or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"SINGLE cli inference: launches {infer_counts}, wavs {wavs}")
+    finally:
+        os.chdir(cwd)
+    return dict(train=first, launches=dict(train=train_counts, eval=eval_counts,
+                                           inference=infer_counts),
+                idle_share=idle, warm_step_s=warm_ms / 1e3, eval_rows=tester.rows,
+                inference_rtf=rtf), train_counts
+
+
+def variants_phase(smi):
+    """The variants phase: each shipped stream-interaction config and each
+    other generator option, kernels against plain with exact launches; the
+    SINGLE config through the CLI; the latent layout's gradient; and
+    USE_CHECKPOINT. Returns (report, the SINGLE training run's launches)."""
+    rows = []
+    per_fwd = {}
+    for name, yaml_name in VARIANT_YAMLS.items():
+        row, per_fwd[name] = variant_forward(
+            f"{yaml_name} ({name})", variant_config(yaml_name, amp=False),
+            variant_config(yaml_name, amp=True), smi)
+        rows.append(row)
+    # A single stream runs half the flagship's scans: 15 fused, 2 recurrence.
+    half = dict(selective_scan_fused=sum(FUSED_CALLS.values()) // 2,
+                linear_recurrence=sum(LR_CALLS.values()) // 2)
+    if per_fwd["single"] != half:
+        raise AssertionError(f"SINGLE's launches per forward {per_fwd['single']} != {half}")
+    cli_report, single_launches = single_cli_phase(smi, per_fwd["single"])
+    for label, overrides in VARIANT_OPTIONS.items():
+        row, per_fwd[label] = variant_forward(
+            label, variant_config(CONFIG.name, amp=False, overrides=overrides),
+            variant_config(CONFIG.name, amp=True, overrides=overrides), smi)
+        rows.append(row)
+    print(f"fp32 generator gradient of the {LATENT} layout (the fused backward at D = 512 "
+          f"in its bottleneck), kernels and plain scan vs the plain scan in fp64:")
+    cfg32 = variant_config(CONFIG.name, amp=False, gan=True, overrides={
+        **VARIANT_OPTIONS[LATENT], "MODEL.VSSM.DROP_PATH_RATE": 0.0})
+    f, r = per_fwd[LATENT]["selective_scan_fused"], per_fwd[LATENT]["linear_recurrence"]
+    # Here the plain fp32 scan's own rounding reaches the bar (1.05 of it on
+    # output_layer_phase.3.bias, a bias whose gradient sums 262 144
+    # positions; the kernels 0.29, on an H100): the kernels are held to the
+    # fp64 witness and to the plain fp32 scan.
+    latent_grad = gradient_check(cfg32, dict(selective_scan_fused=f, selective_scan_fused_bwd=f,
+                                             linear_recurrence=r, linear_recurrence_reverse=r),
+                                 plain_to_witness=False)
+    return dict(forwards=rows, single_cli=cli_report, latent_grad=latent_grad,
+                use_checkpoint=checkpoint_memory_check(smi)), single_launches
+
+
+def gradient_check(cfg32, want, plain_to_witness: bool = True):
+    """The fp32 generator loss of ``cfg32`` (batch 1) differentiated with the
+    kernels, with the plain scan, with the kernels again and with the plain
+    scan in fp64, the witness the kernels are held to (GRAD_REL of each
+    tensor's scale + GRAD_FLOOR of the largest), and with them the plain fp32
+    scan (``plain_to_witness``) or, where that scan's own rounding is the
+    larger, the kernels again against it; fails unless the kernels' launches
+    are ``want``, every SS2D parameter gets a gradient and the plain routes
+    launch nothing. TF32 off."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_generator(cfg32, "cuda")
+    step = make_train_step(cfg32, model, get_discriminators(cfg32, "cuda"))
+    batch = train_batch(cfg32, seeds=(20,))
+    named = list(model.named_parameters())
+    grads, totals, counts = {}, {}, {}
+    for impl in ("kernel", "plain", "kernel again", "plain64"):
+        set_scan_impl(model, impl.split()[0])
+        zero_counts()
+        total, _, _ = step.gen_loss_fn(batch["wave_input"], batch["wave_target"],
+                                       batch["highcut"], torch.Generator(device="cuda"))
+        grads[impl] = torch.autograd.grad(total, [p for _, p in named], allow_unused=True,
+                                          materialize_grads=True)
+        totals[impl] = total.item()
+        counts[impl] = read_counts()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    witness = grads["plain64"]
+    top = max(g.abs().max().item() for g in witness)
+
+    def ratios(a, b):
+        """Per tensor: max|a - b| / bar, max|a - b| / max|b|."""
+        return [(((x - y).abs().max() / (GRAD_REL * y.abs().max() + GRAD_FLOOR * top)).item(),
+                 ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item())
+                for x, y in zip(a, b)]
+
+    def worst_ratio(a, b):
+        r = ratios(a, b)
+        i = int(np.argmax([x for x, _ in r]))
+        return r[i][0], named[i][0], b[i].abs().max().item()
+
+    worst, worst_name, worst_scale = worst_ratio(grads["kernel"], witness)
+    plain_worst, plain_name, _ = worst_ratio(grads["plain"], witness)
+    apart, apart_name, _ = worst_ratio(grads["kernel"], grads["plain"])
+    noise, noise_name, _ = worst_ratio(grads["kernel again"], grads["kernel"])
+    kernel_r, plain_r = ratios(grads["kernel"], witness), ratios(grads["plain"], witness)
+    order = sorted(range(len(named)), key=lambda i: -max(kernel_r[i][0], plain_r[i][0]))
+    print("max|diff| / max|fp64| of the tensors furthest from the fp64 witness:")
+    for i in order[:6]:
+        print(f"  {named[i][0]}: kernels {kernel_r[i][1]:.3e}, plain fp32 {plain_r[i][1]:.3e} "
+              f"(of the bar {kernel_r[i][0]:.3e}, {plain_r[i][0]:.3e})")
+    zero = [name for (name, _), g in zip(named, grads["kernel"])
+            if ".op." in name and not g.abs().max().item() > 0]
+    print(f"loss {totals['kernel']:.6f} (plain scan {totals['plain']:.6f}, fp64 "
+          f"{totals['plain64']:.6f}); {len(named)} tensors; bar {GRAD_REL} of each tensor's "
+          f"scale + {GRAD_FLOOR} of the largest ({top:.3e}); worst of the bar from the fp64 "
+          f"witness: kernels {worst:.3e} ({worst_name}, scale {worst_scale:.3e}), plain fp32 "
+          f"{plain_worst:.3e} ({plain_name}); kernels vs plain fp32 {apart:.3e} ({apart_name}); "
+          f"the kernels run twice {noise:.3e} ({noise_name}); zero SS2D gradients {zero}; "
+          f"kernel launches {counts['kernel']}; TF32 off")
+    second = plain_worst if plain_to_witness else apart
+    if worst > 1 or second > 1 or zero or counts["kernel"] != want \
+            or any(counts["plain"].values()) or any(counts["plain64"].values()):
+        raise AssertionError("train gradient check failed")
+    return dict(
+        worst_ratio=worst, worst_tensor=worst_name, worst_scale=worst_scale,
+        plain_worst_ratio=plain_worst, plain_worst_tensor=plain_name,
+        kernel_vs_plain_ratio=apart, rerun_ratio=noise, rel=GRAD_REL, floor=GRAD_FLOOR,
+        top=top, furthest=[(named[i][0], kernel_r[i][1], plain_r[i][1]) for i in order[:6]],
+        loss_kernel=totals["kernel"], loss_plain=totals["plain"],
+        loss_fp64=totals["plain64"], launches=counts["kernel"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -849,6 +1368,9 @@ def main() -> int:
             extra = f"; cold L2 {c['cold_ms']:.4f} ms{extra}"
         if "window" in c:
             extra = f"; W {c['window']}{extra}, also on {CAPPED_CTAS} CTAs"
+        if "empty_captures" in c:
+            extra = (f"{extra}; one kernel per call ({c['empty_captures']} empty captures "
+                     f"taken again)")
         if "h0_max_abs_err" in c:
             extra = f"; H0 max|err| {c['h0_max_abs_err']:.3e} (tol {FP32_TOL}){extra}"
         print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]}: max|err| "
@@ -902,74 +1424,14 @@ def main() -> int:
 
     t0 = phase("train gradient: fp32 flagship generator loss, kernels and plain scan vs "
                "the plain scan in fp64")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg32 = flagship_config(amp=False, gan=True).defrost()
     # DropPath off: at batch 1 a dropped block legitimately has zero gradient,
     # which would hide a scan that drops it.
     cfg32.MODEL.VSSM.DROP_PATH_RATE = 0.0
     cfg32.freeze()
-    model = get_generator(cfg32, "cuda")
-    step = make_train_step(cfg32, model, get_discriminators(cfg32, "cuda"))
-    batch = train_batch(cfg32, seeds=(20,))
-    named = list(model.named_parameters())
-    grads, totals, counts = {}, {}, {}
-    for impl in ("kernel", "plain", "kernel again", "plain64"):
-        set_scan_impl(model, impl.split()[0])
-        zero_counts()
-        total, _, _ = step.gen_loss_fn(batch["wave_input"], batch["wave_target"],
-                                       batch["highcut"], torch.Generator(device="cuda"))
-        grads[impl] = torch.autograd.grad(total, [p for _, p in named], allow_unused=True,
-                                          materialize_grads=True)
-        totals[impl] = total.item()
-        counts[impl] = read_counts()
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    witness = grads["plain64"]
-    top = max(g.abs().max().item() for g in witness)
-
-    def ratios(a, b):
-        """Per tensor: max|a - b| / bar, max|a - b| / max|b|."""
-        return [(((x - y).abs().max() / (GRAD_REL * y.abs().max() + GRAD_FLOOR * top)).item(),
-                 ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item())
-                for x, y in zip(a, b)]
-
-    def worst_ratio(a, b):
-        r = ratios(a, b)
-        i = int(np.argmax([x for x, _ in r]))
-        return r[i][0], named[i][0], b[i].abs().max().item()
-
-    worst, worst_name, worst_scale = worst_ratio(grads["kernel"], witness)
-    plain_worst, plain_name, _ = worst_ratio(grads["plain"], witness)
-    apart, apart_name, _ = worst_ratio(grads["kernel"], grads["plain"])
-    noise, noise_name, _ = worst_ratio(grads["kernel again"], grads["kernel"])
-    kernel_r, plain_r = ratios(grads["kernel"], witness), ratios(grads["plain"], witness)
-    order = sorted(range(len(named)), key=lambda i: -max(kernel_r[i][0], plain_r[i][0]))
-    print("max|diff| / max|fp64| of the tensors furthest from the fp64 witness:")
-    for i in order[:6]:
-        print(f"  {named[i][0]}: kernels {kernel_r[i][1]:.3e}, plain fp32 {plain_r[i][1]:.3e} "
-              f"(of the bar {kernel_r[i][0]:.3e}, {plain_r[i][0]:.3e})")
-    zero = [name for (name, _), g in zip(named, grads["kernel"])
-            if ".op." in name and not g.abs().max().item() > 0]
-    want = dict(selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
-                linear_recurrence_reverse=4)
-    print(f"loss {totals['kernel']:.6f} (plain scan {totals['plain']:.6f}, fp64 "
-          f"{totals['plain64']:.6f}); {len(named)} tensors; bar {GRAD_REL} of each tensor's "
-          f"scale + {GRAD_FLOOR} of the largest ({top:.3e}); worst of the bar from the fp64 "
-          f"witness: kernels {worst:.3e} ({worst_name}, scale {worst_scale:.3e}), plain fp32 "
-          f"{plain_worst:.3e} ({plain_name}); kernels vs plain fp32 {apart:.3e} ({apart_name}); "
-          f"the kernels run twice {noise:.3e} ({noise_name}); zero SS2D gradients {zero}; "
-          f"kernel launches {counts['kernel']}; TF32 off")
-    if worst > 1 or plain_worst > 1 or zero or counts["kernel"] != want \
-            or any(counts["plain"].values()) or any(counts["plain64"].values()):
-        raise AssertionError("train gradient check failed")
-    report["train_grad_check"] = dict(
-        worst_ratio=worst, worst_tensor=worst_name, worst_scale=worst_scale,
-        plain_worst_ratio=plain_worst, plain_worst_tensor=plain_name,
-        kernel_vs_plain_ratio=apart, rerun_ratio=noise, rel=GRAD_REL, floor=GRAD_FLOOR,
-        top=top, furthest=[(named[i][0], kernel_r[i][1], plain_r[i][1]) for i in order[:6]],
-        loss_kernel=totals["kernel"], loss_plain=totals["plain"],
-        loss_fp64=totals["plain64"], launches=counts["kernel"])
-    del model, step, grads
+    report["train_grad_check"] = gradient_check(cfg32, dict(
+        selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
+        linear_recurrence_reverse=4))
     print(f"gradients checked in {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("serve: Inferencer.infer_file, full flagship generator, bf16")
@@ -1144,11 +1606,32 @@ def main() -> int:
                            scan_kernels_by_wrapper=in_step, top=by_name.most_common(20),
                            top_ops=ops)
     print(f"trained in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("scan routes: autograd Function (main path) against dispatcher op "
+               "(checkpointed blocks), bf16 batch 4")
+    host = route_host_us(gen)
+    for name, c in host.items():
+        if isinstance(c, dict):
+            print(f"{name} x{c['calls_per_step']}: host us per call, forward "
+                  f"{c['function_fwd_us']:.1f} (Function) vs {c['op_fwd_us']:.1f} (op), "
+                  f"forward + backward {c['function_fwd_bwd_us']:.1f} vs {c['op_fwd_bwd_us']:.1f}")
+    steps = route_step_ms(model, run)
+    print(f"op route over one step's scan calls: host +{host['step_fwd_delta_us']:.1f} us "
+          f"forward, +{host['step_fwd_bwd_delta_us']:.1f} us forward + backward; train step "
+          f"{steps['function_ms']:.2f} ms (Function) vs {steps['op_ms']:.2f} ms (op), medians "
+          f"of {steps['steps_per_route']} steps each  [{smi}]")
+    report["scan_routes"] = dict(host_us=host, step=steps)
+    print(f"routes timed in {time.perf_counter() - t0:.1f} s")
     del model, discs, gen_state, disc_states, step, batches, history
 
     t0 = phase("cli: train, resume, eval, throughput (vm_asr_tpu_torch.cli, flagship, batch 4)")
     report["cli"], cli_launches = cli_phase(smi, idle)
     print(f"cli phase in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("variants: the SINGLE/P2M/M2P configs and the other generator options, "
+               "flagship width")
+    report["variants"], single_launches = variants_phase(smi)
+    print(f"variants phase in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
@@ -1174,6 +1657,7 @@ def main() -> int:
                     in_step_device_ms=sum(in_step[part[0]] for part in parts) if events else None,
                     bound_ms=sum(x["bound_ms"] for x in sums), bound_by="bytes",
                     library_ms=None, check="pass", cli_launches=cli_launches[name],
+                    single_cli_launches=single_launches[name],
                     per="one batch-4 train step, summed over its calls", **extra)
 
     bwd_step = per_train_step("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")

@@ -12,6 +12,8 @@ Layout transforms (flax → torch):
     Dense kernel (in, out)              → Linear weight (out, in)
     Dense kernel of a 1×1 conv (in, out) → Conv2d weight (out, in, 1, 1)
     Conv kernel (kh, kw, in/g, out)     → Conv2d weight (out, in/g, kh, kw)
+    ConvTranspose kernel (kh, kw, in, out) → ConvTranspose2d weight
+                                          (in, out, kh, kw), flipped in kh and kw
     LayerNorm scale                     → weight
     A_logs (K, D, N) / Ds (K, D)        → (K·D, N) / (K·D,)
     x_proj_weight / dt_projs_weight / dt_projs_bias → verbatim
@@ -28,9 +30,15 @@ import numpy as np
 import torch
 
 _STREAMS = {"core": "", "core_mag": "_mag", "core_phase": "_phase"}
-_OUTPUT = {"out_vss1": "0", "out_vss2": "1", "out_conv": "3", "out_vss3": "5"}
-_PATCH_EMBED = {"conv1": "0", "norm1": "2", "conv2": "5", "norm2": "7"}
-_CONV_1X1 = ("skip_conv", "out_conv")
+# v2/v3 heads: the reference's Sequential slots. The v1 head keeps the JAX
+# package's names (models/unet.py:HeadV1).
+_OUTPUT = {"out_vss1": "0", "out_vss2": "1", "out_conv": "3", "out_vss3": "5",
+           "out_skip_conv": "out_skip_conv", "out_convt1": "out_convt1",
+           "out_convt2": "out_convt2"}
+# v2: conv1/norm1/conv2/norm2; v1: proj/norm (reference model.py:580-633).
+_PATCH_EMBED = {"conv1": "0", "norm1": "2", "conv2": "5", "norm2": "7", "proj": "0", "norm": "2"}
+_CONV_1X1 = ("skip_conv", "out_conv", "out_skip_conv")
+_CONV_TRANSPOSE = ("out_convt1", "out_convt2")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -52,6 +60,8 @@ def _leaf(path: Tuple[str, ...], value: np.ndarray):
     if leaf == "kernel":
         if owner in _CONV_1X1:
             return "weight", value.T[:, :, None, None]
+        if owner in _CONV_TRANSPOSE:  # flax's transposed conv does not flip
+            return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
         if value.ndim == 4:  # conv (kh, kw, in/g, out)
             return "weight", value.transpose(3, 2, 0, 1)
         return "weight", value.T
@@ -94,9 +104,11 @@ def _with_stream_suffix(name: str, sfx: str) -> str:
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax params tree (nested dict of arrays) → torch ``state_dict``.
 
-    Takes a whole generator tree ({core_mag, core_phase} or {core}) or the
-    tree of one SS2D / VSSBlock / VSSLayer, whose keys then come out relative
-    to that module. Only the v2 patch embed and the v2/v3 heads are mapped.
+    Takes a whole generator tree ({core_mag, core_phase}, {core_mag} of a
+    single-stream dual model, or {core} of a MambaUNet) or the tree of one
+    SS2D / VSSBlock / VSSLayer, whose keys then come out relative to that
+    module. Maps both layouts (the latent stage to ``layers_latent.0``), both
+    patch embeds and the three heads.
     """
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):

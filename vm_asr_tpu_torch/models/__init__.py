@@ -1,7 +1,10 @@
 from .discriminator import MultiPeriodDiscriminator, PeriodDiscriminator, SpectralNormConv2d
 from .factory import generator_kwargs, get_discriminators, get_generator, set_scan_impl
 from .layers import (
+    ConvTranspose2d,
     DropPath,
+    Dropout,
+    GMlp,
     LayerNorm,
     Linear,
     Mlp,
@@ -11,12 +14,15 @@ from .layers import (
     init_parameters,
 )
 from .ss2d import SS2D
-from .unet import DualStreamInteractiveMambaUNet, MambaUNet, UNetCore
+from .unet import DualStreamInteractiveMambaUNet, MambaUNet, SpectralUNet, UNetCore
 from .vss import VSSBlock, VSSLayer
 
 __all__ = [
+    "ConvTranspose2d",
     "DropPath",
+    "Dropout",
     "DualStreamInteractiveMambaUNet",
+    "GMlp",
     "LayerNorm",
     "Linear",
     "MambaUNet",
@@ -28,6 +34,7 @@ __all__ = [
     "PeriodDiscriminator",
     "SS2D",
     "SpectralNormConv2d",
+    "SpectralUNet",
     "UNetCore",
     "VSSBlock",
     "VSSLayer",

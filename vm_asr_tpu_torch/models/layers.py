@@ -192,18 +192,65 @@ class DropPath(nn.Module):
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``): in training each element is
+    kept with probability 1 − rate and scaled by 1/keep; the identity in eval
+    or at rate 0, zeros at rate 1. The mask is drawn from ``generator``, as
+    DropPath's is."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("Dropout in training mode draws from an explicit "
+                             "torch.Generator; pass generator=")
+        keep = 1.0 - self.rate
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
-    """fc1 → act → fc2 (reference vmamba.py:483-509; dropout 0)."""
+    """fc1 → act → dropout → fc2 → dropout (reference vmamba.py:483-509)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 act: str = "gelu", *, compute_dtype: torch.dtype = torch.float32):
+                 act: str = "gelu", drop_rate: float = 0.0, *,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, compute_dtype=compute_dtype)
         self.fc2 = Linear(hidden_features, out_features, compute_dtype=compute_dtype)
         self.act = get_activation(act)
+        self.drop = Dropout(drop_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x = self.drop(self.act(self.fc1(x)), generator)
+        return self.drop(self.fc2(x), generator)
+
+
+class GMlp(nn.Module):
+    """Gated MLP (reference vmamba.py:512-538): fc1 to 2·hidden, split into
+    (x, z), fc2(x · act(z)), dropout."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 act: str = "gelu", drop_rate: float = 0.0, *,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(in_features, 2 * hidden_features, compute_dtype=compute_dtype)
+        self.fc2 = Linear(hidden_features, out_features, compute_dtype=compute_dtype)
+        self.act = get_activation(act)
+        self.drop = Dropout(drop_rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x, z = self.fc1(x).chunk(2, dim=-1)
+        return self.drop(self.fc2(x * self.act(z)), generator)
 
 
 class PatchMerging(nn.Module):
@@ -245,36 +292,77 @@ class PatchExpanding(nn.Module):
 
 
 class PatchEmbed(nn.Sequential):
-    """Patch embedding v2: conv 3×3/s2 → LN → GELU → conv 3×3/s2 → LN, NHWC.
+    """Patch embedding, NHWC (reference model.py:580-633).
 
-    Slots 0/2/5/7 hold the reference's conv1/norm1/conv2/norm2 (its
-    Sequential has permutes and the GELU between them), so the state_dict
-    keys are the reference's ``patch_embed*.{0,2,5,7}.*``."""
+    v2: conv 3×3/s2 → LN → GELU → conv 3×3/s2 → LN, in slots 0/2/5/7, which
+    hold the reference's conv1/norm1/conv2/norm2 (its Sequential has permutes
+    and the GELU between them).
+    v1: one patch_size × patch_size conv of stride patch_size → LN, in slots
+    0/2 (the reference's Conv2d, Permute, LN); the image's sides are
+    multiples of the patch (flax's "SAME" padding then pads nothing).
+    So the state_dict keys are the reference's ``patch_embed*.{0,2,5,7}.*``."""
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 4,
                  version: str = "v2", patch_norm: bool = True, *,
                  compute_dtype: torch.dtype = torch.float32):
-        if version != "v2" or patch_size != 4:
-            raise NotImplementedError(
-                f"PatchEmbed {version} / patch size {patch_size}: only v2 with "
-                "patch size 4 is ported"
-            )
         norm = (lambda d: LayerNorm(d, compute_dtype=compute_dtype)) if patch_norm \
             else (lambda d: nn.Identity())
-        super().__init__(
-            Conv2d(in_chans, embed_dim // 2, 3, 2, 1, compute_dtype=compute_dtype),
-            nn.Identity(),
-            norm(embed_dim // 2),
-            nn.Identity(),
-            nn.Identity(),
-            Conv2d(embed_dim // 2, embed_dim, 3, 2, 1, compute_dtype=compute_dtype),
-            nn.Identity(),
-            norm(embed_dim),
-        )
+        if version == "v1":
+            super().__init__(
+                Conv2d(in_chans, embed_dim, patch_size, patch_size, compute_dtype=compute_dtype),
+                nn.Identity(),
+                norm(embed_dim),
+            )
+        elif version == "v2":
+            if patch_size != 4:
+                raise ValueError(f"the v2 patch embed downsamples by 4, not {patch_size}")
+            super().__init__(
+                Conv2d(in_chans, embed_dim // 2, 3, 2, 1, compute_dtype=compute_dtype),
+                nn.Identity(),
+                norm(embed_dim // 2),
+                nn.Identity(),
+                nn.Identity(),
+                Conv2d(embed_dim // 2, embed_dim, 3, 2, 1, compute_dtype=compute_dtype),
+                nn.Identity(),
+                norm(embed_dim),
+            )
+        else:
+            raise ValueError(f"unknown patch embed version {version!r}")
+        self.version = version
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.version == "v1":
+            return self[2](self[0](x))
         x = F.gelu(self[2](self[0](x)))
         return self[7](self[5](x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``ConvTranspose(k, strides=2, padding="SAME", dtype=compute_dtype)``
+    on NHWC input: a torch transposed conv at padding 0 (output (H−1)·2 + k)
+    cropped to the first 2H × 2W. Its weight (in, out, kh, kw) is the flax
+    kernel (kh, kw, in, out) flipped in both spatial axes (flax's transposed
+    conv does not flip, torch's does) and permuted. Init: kernel ~
+    U(±1/sqrt(kh·kw·in)) (flax ``torch_linear_init`` over its kernel), zero
+    bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 2, *, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride)
+        self.compute_dtype = compute_dtype
+
+    def init_from(self, generator: torch.Generator) -> None:
+        kh, kw = self.kernel_size
+        uniform_(self.weight, 1.0 / math.sqrt(kh * kw * self.in_channels), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        h, w = x.shape[1], x.shape[2]
+        sh, sw = self.stride
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
+                               self.bias.to(dt), self.stride)
+        return y[:, :, :h * sh, :w * sw].permute(0, 2, 3, 1)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -4,7 +4,7 @@
     → cross-scan into K=4 directional sequences
     → per-direction projections to (Δ, B, C)
     → selective scan (fp32 maths, CUDA kernels)
-    → cross-merge → LayerNorm → · SiLU(z) → out_proj
+    → cross-merge → LayerNorm → · SiLU(z) → out_proj → dropout
 
 Parameters keep the reference's layouts: stacked-K ``x_proj_weight
 (K, R+2N, D)``, ``dt_projs_weight (K, D, R)``, ``dt_projs_bias (K, D)``,
@@ -14,12 +14,13 @@ Parameters keep the reference's layouts: stacked-K ``x_proj_weight
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from ..ops import cross_merge, cross_scan, selective_scan
-from .layers import DepthwiseConv2d, LayerNorm, Linear, get_activation, uniform_
+from .layers import DepthwiseConv2d, Dropout, LayerNorm, Linear, get_activation, uniform_
 
 
 def dt_bias_init_(t: torch.Tensor, generator: torch.Generator, dt_min: float = 0.001,
@@ -51,6 +52,7 @@ class SS2D(nn.Module):
         act: str = "silu",
         d_conv: int = 3,
         conv_bias: bool = True,
+        dropout: float = 0.0,
         bias: bool = False,
         dt_min: float = 0.001,
         dt_max: float = 0.1,
@@ -60,7 +62,10 @@ class SS2D(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         scan_fp32_io: bool = False,
         scan_impl: str = "kernel",
+        checkpointed: bool = False,
     ):
+        """``checkpointed``: the block runs as a selective activation
+        checkpoint that keeps the scan's output (models/vss.py)."""
         super().__init__()
         d_inner = int(ssm_ratio * d_model)
         r = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
@@ -69,6 +74,7 @@ class SS2D(nn.Module):
         self.act = get_activation(act)
         self.scan_fp32_io = scan_fp32_io
         self.scan_impl = scan_impl
+        self.checkpointed = checkpointed
 
         self.in_proj = Linear(d_model, 2 * d_inner, bias=bias, compute_dtype=compute_dtype)
         self.conv2d = DepthwiseConv2d(d_inner, d_conv, bias=conv_bias,
@@ -80,6 +86,7 @@ class SS2D(nn.Module):
         self.Ds = nn.Parameter(torch.empty(k_group * d_inner))
         self.out_norm = LayerNorm(d_inner, compute_dtype=compute_dtype)
         self.out_proj = Linear(d_inner, d_model, bias=bias, compute_dtype=compute_dtype)
+        self.dropout = Dropout(dropout)
 
     def init_from(self, generator: torch.Generator) -> None:
         """The parameters SS2D owns directly; its submodules init themselves."""
@@ -89,7 +96,9 @@ class SS2D(nn.Module):
         a_log_init_(self.A_logs)
         nn.init.ones_(self.Ds)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` feeds the dropout mask in training mode."""
         b, h, w, _ = x.shape
         k, d, n, r = self.k_group, self.d_inner, self.d_state, self.dt_rank
         xs2d, z = self.in_proj(x).chunk(2, dim=-1)
@@ -105,7 +114,8 @@ class SS2D(nn.Module):
         y = selective_scan(
             xs, dts, a, bs, cs, self.Ds.reshape(k, d), self.dt_projs_bias,
             delta_softplus=True, fp32_io=self.scan_fp32_io, impl=self.scan_impl,
+            checkpointed=self.checkpointed,
         )
         y = self.out_norm(cross_merge(y, h, w))
         y = y.reshape(b, h, w, d).to(x.dtype)
-        return self.out_proj(y * z)
+        return self.dropout(self.out_proj(y * z), generator)

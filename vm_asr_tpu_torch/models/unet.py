@@ -1,28 +1,34 @@
-"""MambaUNet base and DualStreamInteractiveMambaUNet (port of
+"""MambaUNet and DualStreamInteractiveMambaUNet (port of
 vm_asr_tpu/models/unet.py; reference model/model.py:119-1552).
 
 waveform → STFT (513×F) → drop the DC bin (512×F) → patch embed (4× down)
-→ 4 encoder stages with PatchMerging → 4 decoder stages with PatchExpanding
-and concat skips → v3 output head → + residual magnitude → re-attach DC
-→ iSTFT. Channels-last (NHWC) throughout, as in the JAX package.
+→ encoder stages with PatchMerging → (latent layout: a bottleneck stage)
+→ decoder stages with PatchExpanding and skips → output head (v1/v2/v3)
+→ + residual magnitude → re-attach DC → iSTFT. Channels-last (NHWC)
+throughout, as in the JAX package.
 
 Kept from the reference, as the JAX package keeps them:
-- The first decoder stage receives the empty drop-path slice ``dpr[8:8]``:
-  no blocks, no sampler, a pass-through.
+- In the standard layout (len(dims) == len(depths)) the first decoder stage
+  receives the empty drop-path slice ``dpr[8:8]``: no blocks, no sampler, a
+  pass-through. In the latent layout (len(dims) == len(depths) + 1) every
+  encoder downsamples, one bottleneck VSSLayer runs at ``layers_latent.0``,
+  and every decoder stage and the head take a skip.
 - In concat-skip mode the phase stream runs through the *magnitude*
   decoder (model.py:1148) unless ``phase_decoder_fix``; the phase decoders
   are then never built, and a reference checkpoint's
   ``layers_decoder_phase.*`` is dropped on load.
-- The dual-stream forward does not normalise the magnitude.
-- The "dual" interaction is two sequential adds.
+- The dual-stream forward does not normalise the magnitude; MambaUNet
+  standardises it per sample (unbiased std).
+- The "dual" interaction is two sequential adds; "p2m" and "m2p" one each;
+  "single" builds no phase stream and passes the phase through.
 - LOW_FREQ_REPLACEMENT in "torch" mode is a no-op on (B, 1, T) input.
 
-Not ported yet: the latent (5-dims) variant, the v1/v2 heads, the
-p2m/m2p/single interactions, FUSE_STREAMS and stacked execution.
+Not ported yet: stacked execution (``DualStreamStackedMambaUNet``).
 
 Module names are the reference's (``patch_embed_mag``,
-``layers_encoder_mag``, ``layers_decoder_mag``, ``output_layer_mag`` and the
-``_phase`` twins), so its ``state_dict`` keys are too.
+``layers_encoder_mag``, ``layers_latent_mag``, ``layers_decoder_mag``,
+``output_layer_mag`` and the ``_phase`` twins; bare names for MambaUNet), so
+its ``state_dict`` keys are too.
 """
 
 from __future__ import annotations
@@ -32,9 +38,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..dsp import spectro2wav, wav2spectro
-from .layers import Conv1x1, PatchEmbed
+from .layers import Conv1x1, ConvTranspose2d, PatchEmbed
 from .vss import VSSLayer
 
 
@@ -42,6 +49,69 @@ def resolve_dims(dims, num_layers: int) -> List[int]:
     if isinstance(dims, int):
         return [dims * 2**i for i in range(num_layers)]
     return list(dims)
+
+
+class HeadV3(nn.Sequential):
+    """v3 head: VSS(dim0, identity norm, skip, expand+LN) → VSS(dim0/2, LN,
+    expand+LN) → 1×1 conv → VSS(in_chans, identity norm), in the reference's
+    Sequential slots 0/1/3/5 (model.py:773-887)."""
+
+    def __init__(self, dim0: int, in_chans: int, drop_path, concat_skip: bool,
+                 compute_dtype: torch.dtype, **block_kwargs):
+        common = dict(drop_path=drop_path, compute_dtype=compute_dtype, **block_kwargs)
+        super().__init__(
+            VSSLayer(dim0, use_norm=False, sampler=("expand", True),
+                     concat_skip=concat_skip, **common),
+            VSSLayer(dim0 // 2, use_norm=True, sampler=("expand", True), **common),
+            nn.Identity(),
+            Conv1x1(dim0 // 4, in_chans, compute_dtype=compute_dtype),
+            nn.Identity(),
+            VSSLayer(in_chans, use_norm=False, **common),
+        )
+
+    def forward(self, x, generator=None):
+        return self[5](self[3](self[1](self[0](x, generator), generator)), generator)
+
+
+class HeadV2(nn.Sequential):
+    """v2 head: VSS(dim0, LN, skip, expand) → VSS(dim0/2, LN, expand), each
+    with the last stage's drop paths, → a 1×1 conv where dim0/4 ≠ in_chans,
+    in slots 0/1/3 (reference model.py:675-771)."""
+
+    def __init__(self, dim0: int, in_chans: int, drop_path, concat_skip: bool,
+                 compute_dtype: torch.dtype, **block_kwargs):
+        common = dict(drop_path=drop_path, compute_dtype=compute_dtype, **block_kwargs)
+        mods = [VSSLayer(dim0, sampler=("expand", False), concat_skip=concat_skip, **common),
+                VSSLayer(dim0 // 2, sampler=("expand", False), **common)]
+        if dim0 // 4 != in_chans:
+            mods += [nn.Identity(), Conv1x1(dim0 // 4, in_chans, compute_dtype=compute_dtype)]
+        super().__init__(*mods)
+
+    def forward(self, x, generator=None):
+        x = self[1](self[0](x, generator), generator)
+        return self[3](x) if len(self) > 3 else x
+
+
+class HeadV1(nn.Module):
+    """v1 head (JAX unet.py:233-250, 269-285): the skip's 1×1 conv (2·dim0 →
+    dim0, concat skips only) → exact GELU → 3×3/s2 transposed conv (→ dim0/2)
+    → GELU → 3×3/s2 transposed conv (→ in_chans). The reference's names for
+    this head are unknown (the JAX package's converter rejects it and the
+    reference tree is absent), so its modules carry the JAX package's names:
+    ``out_skip_conv``, ``out_convt1``, ``out_convt2``."""
+
+    def __init__(self, dim0: int, in_chans: int, concat_skip: bool,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.out_skip_conv = Conv1x1(2 * dim0, dim0, compute_dtype=compute_dtype) \
+            if concat_skip else None
+        self.out_convt1 = ConvTranspose2d(dim0, dim0 // 2, compute_dtype=compute_dtype)
+        self.out_convt2 = ConvTranspose2d(dim0 // 2, in_chans, compute_dtype=compute_dtype)
+
+    def forward(self, x, generator=None):
+        if self.out_skip_conv is not None:
+            x = self.out_skip_conv(x)
+        return self.out_convt2(F.gelu(self.out_convt1(F.gelu(x))))
 
 
 def build_stream(
@@ -60,17 +130,18 @@ def build_stream(
     **block_kwargs,
 ) -> dict:
     """One stream's modules, keyed by the reference's names (without the
-    stream suffix): patch_embed, layers_encoder, layers_decoder (when
-    ``with_decoders``) and output_layer."""
-    num_layers = len(depths)
-    dims = resolve_dims(dims, num_layers)
-    if len(dims) != num_layers:
-        raise NotImplementedError(
-            f"dims {dims}: only the standard {num_layers}-entry layout is ported "
-            "(the latent variant is not)"
-        )
-    if output_version != "v3":
-        raise NotImplementedError(f"output head {output_version}: only v3 is ported")
+    stream suffix): patch_embed, layers_encoder, layers_latent (latent
+    layout), layers_decoder (when ``with_decoders``) and output_layer."""
+    n = len(depths)
+    dims = resolve_dims(dims, n)
+    if len(dims) not in (n, n + 1):
+        raise ValueError(f"dims must have {n} entries (standard U-Net) or {n + 1} "
+                         f"(latent layout); got {len(dims)}")
+    if patch_size != 4:
+        # The JAX package builds such a stream and then fails to add its
+        # residual: the heads upsample by 4 whatever the patch size.
+        raise ValueError(f"patch size {patch_size}: the output heads upsample by 4")
+    latent = len(dims) == n + 1
     dpr = list(np.linspace(0.0, drop_path_rate, sum(depths)))
     common = dict(compute_dtype=compute_dtype, **block_kwargs)
 
@@ -78,54 +149,63 @@ def build_stream(
         return dpr[sum(depths[:lo]):sum(depths[:hi])]
 
     modules = {
-        "patch_embed": PatchEmbed(in_chans, dims[0], patch_size, patchembed_version,
-                                  patch_norm, compute_dtype=compute_dtype),
-        # Blocks at dims[i]; downsample at every stage end but the last
-        # (reference model.py:247-297).
+        # The image has one channel; ``in_chans`` sets the head's output
+        # channels (flax infers the embed's input width from the image).
+        "patch_embed": PatchEmbed(1, dims[0], patch_size, patchembed_version, patch_norm,
+                                  compute_dtype=compute_dtype),
+        # Blocks at dims[i]; downsample at every stage end but the standard
+        # layout's last (reference model.py:247-297).
         "layers_encoder": nn.ModuleList(
             VSSLayer(dims[i], stage(i, i + 1),
-                     sampler=("merge", dims[i + 1]) if i < num_layers - 1 else None,
+                     sampler=("merge", dims[i + 1]) if latent or i < n - 1 else None,
                      **common)
-            for i in range(num_layers)
+            for i in range(n)
         ),
     }
+    if latent:
+        # The bottleneck, with the last stage's drop paths (model.py:299-332).
+        modules["layers_latent"] = nn.ModuleList([VSSLayer(dims[n], stage(n - 1, n), **common)])
     if with_decoders:
-        # i_layer = num_layers .. 1 (reference model.py:338-394).
+        # i_layer = n .. 1 (reference model.py:338-394).
         decoders = []
-        for i_layer in range(num_layers, 0, -1):
-            dim = dims[i_layer] if i_layer < num_layers - 1 else dims[num_layers - 1]
-            inner = i_layer < num_layers
+        for i_layer in range(n, 0, -1):
+            inner = latent or i_layer < n
+            dim = dims[i_layer] if latent or i_layer < n - 1 else dims[n - 1]
             decoders.append(VSSLayer(
                 dim, stage(i_layer, i_layer + 1),
                 sampler=("expand", True) if inner else None,
                 concat_skip=concat_skip and inner, **common,
             ))
         modules["layers_decoder"] = nn.ModuleList(decoders)
-    # v3 head: VSS(dim0, identity norm, concat skip, expand+LN) → VSS(dim0/2,
-    # LN, expand+LN) → 1×1 conv → VSS(in_chans, identity norm), in Sequential
-    # slots 0/1/3/5 as in the reference (model.py:773-887).
-    dim0 = dims[0]
-    modules["output_layer"] = nn.Sequential(
-        VSSLayer(dim0, dpr[-1:], use_norm=False, sampler=("expand", True),
-                 concat_skip=concat_skip, **common),
-        VSSLayer(dim0 // 2, dpr[-1:], use_norm=True, sampler=("expand", True), **common),
-        nn.Identity(),
-        Conv1x1(dim0 // 4, in_chans, compute_dtype=compute_dtype),
-        nn.Identity(),
-        VSSLayer(in_chans, dpr[-1:], use_norm=False, **common),
-    )
+    if output_version == "v3":
+        head = HeadV3(dims[0], in_chans, dpr[-1:], concat_skip, **common)
+    elif output_version == "v2":
+        head = HeadV2(dims[0], in_chans, stage(n - 1, n), concat_skip, **common)
+    elif output_version == "v1":
+        head = HeadV1(dims[0], in_chans, concat_skip, compute_dtype)
+    else:
+        raise ValueError(f"unknown output version {output_version!r}")
+    modules["output_layer"] = head
     return modules
 
 
 class UNetCore:
     """One stream's stage functions over modules its owner registers
-    (JAX package: models/unet.py:UNetCore)."""
+    (JAX package: models/unet.py:UNetCore); calling it runs the whole
+    single-stream U-Net over an NHWC image, skips included."""
 
-    def __init__(self, patch_embed, layers_encoder, layers_decoder, output_layer):
+    def __init__(self, patch_embed, layers_encoder, output_layer, layers_decoder=None,
+                 layers_latent=None, concat_skip: bool = True):
         self.patch_embed = patch_embed
         self.layers_encoder = layers_encoder
+        self.layers_latent = layers_latent
         self.layers_decoder = layers_decoder
         self.output_layer = output_layer
+        self.concat_skip = concat_skip
+
+    @property
+    def has_latent(self) -> bool:
+        return self.layers_latent is not None
 
     def embed(self, x):
         return self.patch_embed(x)
@@ -133,12 +213,35 @@ class UNetCore:
     def encode(self, i: int, x, generator=None):
         return self.layers_encoder[i](x, generator)
 
+    def run_latent(self, x, generator=None):
+        return self.layers_latent[0](x, generator)
+
     def decode(self, i: int, x, generator=None):
         return self.layers_decoder[i](x, generator)
 
     def output(self, x, generator=None):
-        head = self.output_layer
-        return head[5](head[3](head[1](head[0](x, generator), generator)), generator)
+        return self.output_layer(x, generator)
+
+    def join(self, x, skip):
+        """A skip joined to the stream: concatenated or added."""
+        return torch.cat([x, skip], dim=-1) if self.concat_skip else x + skip
+
+    def __call__(self, x, generator=None):
+        """Reference model.py:459-565, both layouts."""
+        n = len(self.layers_encoder)
+        x = self.embed(x)
+        skips = [x]
+        for i in range(n):
+            x = self.encode(i, x, generator)
+            if self.has_latent or i < n - 1:
+                skips.append(x)
+        if self.has_latent:
+            x = self.run_latent(x, generator)
+        for i in range(n):
+            if self.has_latent or i != 0:
+                x = self.join(x, skips.pop())
+            x = self.decode(i, x, generator)
+        return self.output(self.join(x, skips.pop()), generator)
 
 
 def _low_band_mask(out, hf):
@@ -158,10 +261,9 @@ def _low_freq_replacement_torch_2d(out, orig, hf):
     return torch.where(_low_band_mask(out, hf), out, orig)
 
 
-class MambaUNet(nn.Module):
+class SpectralUNet(nn.Module):
     """Base of the spectral U-Nets: waveform ↔ (log2-magnitude, phase) images
-    and the low-frequency replacement. The single-stream forward is not
-    ported yet."""
+    and the low-frequency replacement."""
 
     def __init__(
         self,
@@ -179,6 +281,11 @@ class MambaUNet(nn.Module):
         self.low_freq_replacement = low_freq_replacement
         self.lfr_mode = lfr_mode
         self.compute_dtype = compute_dtype
+
+    def _register_stream(self, modules: dict, suffix: str, concat_skip: bool) -> UNetCore:
+        for name, module in modules.items():
+            self.add_module(f"{name}{suffix}", module)
+        return UNetCore(**modules, concat_skip=concat_skip)
 
     def _mag_phase(self, x):
         hop = self.hop_length
@@ -206,58 +313,128 @@ class MambaUNet(nn.Module):
             phase = fn(phase, phase_org, hf)
         return mag, phase
 
+    def _corrected(self, core: UNetCore, mag, generator):
+        """``mag`` (B, 512, F) plus ``core``'s correction of it."""
+        return core(mag[..., None].to(self.compute_dtype), generator)[..., 0].float() + mag
 
-class DualStreamInteractiveMambaUNet(MambaUNet):
+
+def _split_kwargs(kwargs):
+    spectral = ("n_fft", "hop_length", "win_length", "spectro_scale", "low_freq_replacement",
+                "lfr_mode", "compute_dtype")
+    return ({k: kwargs.pop(k) for k in spectral if k in kwargs}, kwargs)
+
+
+class MambaUNet(SpectralUNet):
+    """Single-stream magnitude U-Net (reference model.py:119-577): predicts a
+    correction of the per-sample standardised magnitude; the phase passes
+    through. One stream with bare module names (``patch_embed.*``,
+    ``layers_encoder.*``, …: the JAX package's ``core`` root)."""
+
+    def __init__(self, concat_skip: bool = True, **kwargs):
+        spectral, stream_kwargs = _split_kwargs(kwargs)
+        super().__init__(**spectral)
+        self.concat_skip = concat_skip
+        self.core = self._register_stream(
+            build_stream(concat_skip=concat_skip, compute_dtype=self.compute_dtype,
+                         **stream_kwargs), "", concat_skip)
+
+    def forward(self, x: torch.Tensor, hf: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, T) or (B, 1, T) waveform; hf: (B,) highcut bin indices;
+        ``generator`` feeds the DropPath and dropout masks in training mode."""
+        chan = x.dim() == 3
+        if chan:
+            x = x[:, 0, :]
+        length = x.shape[-1]
+        mag, phase = self._mag_phase(x)
+        mag_dc, mag = mag[:, :1], mag[:, 1:]
+        # The correction in per-sample standardised units (model.py:433-457).
+        mean = mag.mean(dim=(-2, -1), keepdim=True)
+        std = mag.std(dim=(-2, -1), keepdim=True)  # unbiased, as torch.Tensor.std
+        mag = self._corrected(self.core, (mag - mean) / (1e-5 + std), generator) * std + mean
+        mag, phase = self._apply_lfr(torch.cat([mag_dc, mag], dim=-2), phase, x, hf, chan)
+        wav = self._i_mag_phase(mag, phase)[..., :length]
+        return wav[:, None, :] if chan else wav
+
+
+class DualStreamInteractiveMambaUNet(SpectralUNet):
     """Magnitude and phase streams with additive interactions after every
-    stage (reference model.py:1006-1552); ``interact="dual"`` only."""
+    encoder and decoder stage (reference model.py:1006-1552). ``interact``:
+    dual | p2m | m2p | single.
+
+    ``fuse_streams``: with concat skips and no phase-decoder fix both streams
+    run through the magnitude decoder, and each such stage is then one call
+    on the batch-concatenated pair (identical per-sample maths; in training
+    one mask stream for the pair, as in the JAX package)."""
+
+    INTERACTIONS = ("dual", "p2m", "m2p", "single")
 
     def __init__(self, interact: str = "dual", phase_decoder_fix: bool = False,
-                 depths: Sequence[int] = (2, 2, 2, 2), concat_skip: bool = True,
-                 n_fft: int = 1024, hop_length: int = 240, win_length: int = 1024,
-                 spectro_scale: str = "log2", low_freq_replacement: bool = False,
-                 lfr_mode: str = "torch", compute_dtype: torch.dtype = torch.float32,
-                 **stream_kwargs):
-        super().__init__(n_fft, hop_length, win_length, spectro_scale,
-                         low_freq_replacement, lfr_mode, compute_dtype)
-        if interact != "dual":
-            raise NotImplementedError(f"interact={interact!r}: only 'dual' is ported")
+                 fuse_streams: bool = False, concat_skip: bool = True, **kwargs):
+        spectral, stream_kwargs = _split_kwargs(kwargs)
+        super().__init__(**spectral)
+        if interact not in self.INTERACTIONS:
+            raise ValueError(f"interact must be one of {self.INTERACTIONS}, got {interact!r}")
         self.interact = interact
         self.phase_decoder_fix = phase_decoder_fix
+        self.fuse_streams = fuse_streams
         self.concat_skip = concat_skip
-        self.num_layers = len(depths)
         # The phase decoders run only with the fix or with additive skips.
         self.phase_decoders_used = phase_decoder_fix or not concat_skip
-        kw = dict(depths=depths, concat_skip=concat_skip, compute_dtype=compute_dtype,
-                  **stream_kwargs)
-        streams = {"mag": build_stream(**kw),
-                   "phase": build_stream(with_decoders=self.phase_decoders_used, **kw)}
-        for sfx, mods in streams.items():
-            for name, module in mods.items():
-                self.add_module(f"{name}_{sfx}", module)
-        self.core_mag = UNetCore(**streams["mag"])
-        self.core_phase = UNetCore(**{"layers_decoder": None, **streams["phase"]})
+        kw = dict(concat_skip=concat_skip, compute_dtype=self.compute_dtype, **stream_kwargs)
+        self.core_mag = self._register_stream(build_stream(**kw), "_mag", concat_skip)
+        self.core_phase = None if interact == "single" else self._register_stream(
+            build_stream(with_decoders=self.phase_decoders_used, **kw), "_phase", concat_skip)
+        self.num_layers = len(self.core_mag.layers_encoder)
 
-    @staticmethod
-    def _interact(m, p):
-        # Sequential adds: the second uses the updated mag (model.py:1174-1176).
-        m = m + p
-        p = p + m
+    def _interact(self, m, p):
+        if self.interact == "dual":
+            # Sequential adds: the second uses the updated mag (model.py:1174-1176).
+            m = m + p
+            p = p + m
+        elif self.interact == "p2m":
+            m = m + p
+        elif self.interact == "m2p":
+            p = p + m
         return m, p
+
+    def _decode(self, i: int, m, p, skip, generator):
+        """Decoder stage i of both streams, joining ``skip`` (a (mag, phase)
+        pair, or None at the standard layout's pass-through stage 0)."""
+        # Either the phase decoders or (concat skips, no fix) the mag decoder,
+        # which at the pass-through stage 0 is the identity either way.
+        phase_core = self.core_phase if self.phase_decoders_used else self.core_mag
+        if skip is None:
+            return self.core_mag.decode(i, m, generator), phase_core.decode(i, p, generator)
+        m, p = self.core_mag.join(m, skip[0]), phase_core.join(p, skip[1])
+        if self.fuse_streams and not self.phase_decoders_used:
+            return self.core_mag.decode(i, torch.cat([m, p], dim=0), generator).chunk(2, dim=0)
+        return self.core_mag.decode(i, m, generator), phase_core.decode(i, p, generator)
 
     def forward(self, x: torch.Tensor, hf: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T) or (B, 1, T) waveform; hf: (B,) highcut bin indices.
 
-        In training mode (``model.train()``) every DropPath draws its mask
-        from ``generator``, a ``torch.Generator`` on x's device (the JAX
-        package's ``deterministic=False`` with a "dropout" rng)."""
+        In training mode (``model.train()``) every DropPath and dropout draws
+        its mask from ``generator``, a ``torch.Generator`` on x's device (the
+        JAX package's ``deterministic=False`` with a "dropout" rng)."""
         chan = x.dim() == 3
         if chan:
             x = x[:, 0, :]
         length = x.shape[-1]
-        n = self.num_layers
-
         mag, phase = self._mag_phase(x)
+        if self.interact == "single":
+            # The whole magnitude U-Net, unnormalised; the phase passes
+            # through and only the magnitude's low band is replaced
+            # (model.py:1461-1542).
+            mag = torch.cat([mag[:, :1], self._corrected(self.core_mag, mag[:, 1:], generator)],
+                            dim=-2)
+            mag, _ = self._apply_lfr(mag, None, x, hf, chan)
+            wav = self._i_mag_phase(mag, phase)[..., :length]
+            return wav[:, None, :] if chan else wav
+
+        n = self.num_layers
+        latent = self.core_mag.has_latent
         mag_dc, phase_dc = mag[:, :1], phase[:, :1]
         mag, phase = mag[:, 1:], phase[:, 1:]
         residual_mag = mag  # no normalisation (model.py:1113-1116)
@@ -268,30 +445,20 @@ class DualStreamInteractiveMambaUNet(MambaUNet):
         for i in range(n):
             m = self.core_mag.encode(i, m, generator)
             p = self.core_phase.encode(i, p, generator)
-            if i < n - 1:
+            if latent or i < n - 1:
                 skips.append((m, p))
             m, p = self._interact(m, p)
-
-        # Decoder 0 is a pass-through, so either stream's serves stage 0.
-        phase_core = self.core_phase if self.phase_decoders_used else self.core_mag
+        if latent:
+            # The bottleneck: no interaction (model.py:1133-1139).
+            m = self.core_mag.run_latent(m, generator)
+            p = self.core_phase.run_latent(p, generator)
         for i in range(n):
-            if i != 0:
-                ms, ps = skips.pop()
-                if self.concat_skip:
-                    m, p = torch.cat([m, ms], dim=-1), torch.cat([p, ps], dim=-1)
-                else:
-                    m, p = m + ms, p + ps
-            m = self.core_mag.decode(i, m, generator)
-            p = phase_core.decode(i, p, generator)
-            m, p = self._interact(m, p)
+            skip = skips.pop() if latent or i != 0 else None
+            m, p = self._interact(*self._decode(i, m, p, skip, generator))
 
         ms, ps = skips.pop()
-        if self.concat_skip:
-            m, p = torch.cat([m, ms], dim=-1), torch.cat([p, ps], dim=-1)
-        else:
-            m, p = m + ms, p + ps
-        m = self.core_mag.output(m, generator)
-        p = self.core_phase.output(p, generator)
+        m = self.core_mag.output(self.core_mag.join(m, ms), generator)
+        p = self.core_phase.output(self.core_phase.join(p, ps), generator)
 
         mag = m[..., 0].float() + residual_mag
         phase = p[..., 0].float()

@@ -1,20 +1,48 @@
 """VSSBlock and VSSLayer (port of vm_asr_tpu/models/vss.py; reference
-vmamba.py:1753-1843, model.py:889-958). Pre-norm blocks. ``generator`` feeds
-the DropPath masks in training mode (the JAX package's "dropout" rng)."""
+vmamba.py:1753-1843, model.py:889-958). ``generator`` feeds the DropPath and
+dropout masks in training mode (the JAX package's "dropout" rng)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from .layers import Conv1x1, DropPath, LayerNorm, Mlp, PatchExpanding, PatchMerging
+from ..ops.scan_api import SCAN_OUTPUT_OPS
+from .layers import Conv1x1, DropPath, GMlp, LayerNorm, Mlp, PatchExpanding, PatchMerging
 from .ss2d import SS2D
 
 
+def _keep_scan_outputs(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy: keep the scans' outputs, recompute the
+    rest (the JAX package's save_only_these_names("scan_out"))."""
+    return CheckpointPolicy.MUST_SAVE if op in SCAN_OUTPUT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SCAN_KEEPING_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
+                                           _keep_scan_outputs)
+
+
 class VSSBlock(nn.Module):
-    """x + DropPath(SS2D(LN(x))), then x + DropPath(MLP(LN(x)))."""
+    """x + DropPath(SS2D(LN(x))), then x + DropPath(MLP(LN(x))).
+
+    ``use_checkpoint``: under autograd the block runs as one activation
+    checkpoint that keeps the scans' outputs and recomputes the rest in the
+    backward (JAX: ``nn.remat`` with ``save_only_these_names("scan_out")``).
+    Its scans then take the dispatcher-op route whose outputs the policy can
+    name (``SS2D(checkpointed=True)``); other blocks keep the cheaper
+    autograd Functions.
+    The recompute draws the same DropPath and dropout masks: it starts from
+    a copy of the generator's state at the block's entry, and the caller's
+    generator leaves the block where the first run left it."""
 
     def __init__(
         self,
@@ -27,8 +55,12 @@ class VSSBlock(nn.Module):
         ssm_act: str = "silu",
         ssm_conv: int = 3,
         ssm_conv_bias: bool = True,
+        ssm_drop_rate: float = 0.0,
         mlp_ratio: float = 4.0,
         mlp_act: str = "gelu",
+        mlp_drop_rate: float = 0.0,
+        gmlp: bool = False,
+        use_checkpoint: bool = False,
         *,
         compute_dtype: torch.dtype = torch.float32,
         scan_fp32_io: bool = False,
@@ -42,27 +74,53 @@ class VSSBlock(nn.Module):
 
         self.ssm_branch = ssm_ratio > 0
         self.mlp_branch = mlp_ratio > 0
+        self.use_checkpoint = use_checkpoint
         if self.ssm_branch:
             self.norm = norm()
             self.op = SS2D(
                 d_model=hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                 dt_rank=ssm_dt_rank, act=ssm_act, d_conv=ssm_conv,
-                conv_bias=ssm_conv_bias, compute_dtype=compute_dtype,
-                scan_fp32_io=scan_fp32_io, scan_impl=scan_impl,
+                conv_bias=ssm_conv_bias, dropout=ssm_drop_rate, compute_dtype=compute_dtype,
+                scan_fp32_io=scan_fp32_io, scan_impl=scan_impl, checkpointed=use_checkpoint,
             )
         self.drop_path = DropPath(drop_path)
         if self.mlp_branch:
             self.norm2 = norm()
-            self.mlp = Mlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
-                           act=mlp_act, compute_dtype=compute_dtype)
+            self.mlp = (GMlp if gmlp else Mlp)(
+                hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim, act=mlp_act,
+                drop_rate=mlp_drop_rate, compute_dtype=compute_dtype)
+
+    def _body(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.ssm_branch:
+            x = x + self.drop_path(self.op(self.norm(x), generator), generator)
+        if self.mlp_branch:
+            x = x + self.drop_path(self.mlp(self.norm2(x), generator), generator)
+        return x
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        if self.ssm_branch:
-            x = x + self.drop_path(self.op(self.norm(x)), generator)
-        if self.mlp_branch:
-            x = x + self.drop_path(self.mlp(self.norm2(x)), generator)
-        return x
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return self._body(x, generator)
+        if generator is None:
+            return checkpoint(self._body, x, None, use_reentrant=False,
+                              context_fn=_SCAN_KEEPING_CONTEXTS)
+        # torch's checkpoint restores the global RNGs for the recompute, not
+        # an explicit generator: each run draws from its own copy of the
+        # entry state instead, and the caller's generator moves on as the
+        # first run's copy did.
+        entry, after = generator.get_state(), []
+
+        def run(v):
+            g = torch.Generator(device=generator.device)
+            g.set_state(entry)
+            out = self._body(v, g)
+            if not after:
+                after.append(g.get_state())
+            return out
+
+        out = checkpoint(run, x, use_reentrant=False, context_fn=_SCAN_KEEPING_CONTEXTS)
+        generator.set_state(after[0])
+        return out
 
 
 class VSSLayer(nn.Module):

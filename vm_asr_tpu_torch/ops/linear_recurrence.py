@@ -1,7 +1,10 @@
 """First-order linear recurrence ``h_t = a_t * h_{t-1} + b_t`` over (R, L, D).
 
-Port of vm_asr_tpu/ops/linear_recurrence.py. ``linear_recurrence`` is a
-``torch.autograd.Function`` (the JAX package's ``custom_vjp``). For CUDA
+Port of vm_asr_tpu/ops/linear_recurrence.py. ``linear_recurrence`` is
+differentiable (the JAX package's ``custom_vjp``): an autograd Function, or
+inside an activation checkpoint the dispatcher op
+``torch.ops.vmasr.linear_recurrence``, whose output the checkpoint can keep.
+For CUDA
 tensors its forward launches the kernel in ``csrc/linear_recurrence.cu`` (the
 counterpart of the TPU kernel ``_lr_pallas``), and its backward launches the
 same kernel in reverse (``linear_recurrence_reverse``, the counterpart of
@@ -185,32 +188,66 @@ def linear_recurrence_reverse(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
     return da, dh
 
 
+def _lr_forward(a, b):
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return linear_recurrence_plain(a, b)
+    return linear_recurrence_fwd(a, b)
+
+
+def _lr_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], output)
+
+
+def _lr_backward(ctx, g):
+    a, h = ctx.saved_tensors
+    da, db = linear_recurrence_reverse(a, h, g.float().contiguous())
+    return da.to(a.dtype), db
+
+
 class _LinearRecurrence(torch.autograd.Function):
+    """The route of a recurrence outside an activation checkpoint: an
+    autograd Function costs the host less per call than the dispatcher op
+    below."""
+
     @staticmethod
     def forward(ctx, a, b):
-        if a.device.type == "cpu" and b.device.type == "cpu":
-            h = linear_recurrence_plain(a, b)
-        else:
-            h = linear_recurrence_fwd(a, b)
-        ctx.save_for_backward(a, h)
+        h = _lr_forward(a, b)
+        _lr_setup(ctx, (a, b), h)
         return h
 
-    @staticmethod
-    def backward(ctx, g):
-        a, h = ctx.saved_tensors
-        da, db = linear_recurrence_reverse(a, h, g.float().contiguous())
-        return da.to(a.dtype), db
+    backward = staticmethod(_lr_backward)
 
 
-def linear_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+@torch.library.custom_op("vmasr::linear_recurrence", mutates_args=(),
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def linear_recurrence_op(a, b):
+    """The same forward as one dispatcher op, whose output a selective
+    activation checkpoint can name and keep (models/vss.py)."""
+    h = _lr_forward(a, b)
+    return h.clone() if h.data_ptr() == b.data_ptr() else h  # L = 1: h is b
+
+
+@linear_recurrence_op.register_fake
+def _(a, b):
+    return torch.empty_like(a, dtype=torch.promote_types(a.dtype, torch.float32))
+
+
+linear_recurrence_op.register_autograd(_lr_backward, setup_context=_lr_setup)
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor, as_op: bool = False) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along axis 1 of (R, L, D) fp32 tensors,
-    differentiable in a and b.
+    differentiable in a and b. ``as_op``: run as the dispatcher op
+    ``torch.ops.vmasr.linear_recurrence``, which an activation checkpoint can
+    keep; else an autograd Function.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels,
     which take contiguous fp32 tensors of one shape on one device, and
     nothing else."""
     if not (a.device.type == "cpu" and b.device.type == "cpu") and a.device.type != "cuda":
         raise ValueError(f"a and b must be on one CUDA device, got {a.device}, {b.device}")
+    if as_op:
+        return torch.ops.vmasr.linear_recurrence(a, b)
     return _LinearRecurrence.apply(a, b)
 
 

@@ -17,14 +17,15 @@ reference's force_fp32 at the scan boundary); the scan then returns fp32.
 for CPU tensors; ``impl="plain"`` calls the plain versions on any device, so
 that a run on the card can hold the kernels against them; ``impl="plain64"``
 runs the plain versions in fp64, a witness that shows how far the fp32
-routes' rounding moves a result. The routes are
-differentiable: the kernel wrappers are autograd Functions whose backward is a
-kernel (fused backward; the recurrence run in reverse), and the plain
-versions are torch ops under plain autograd.
+routes' rounding moves a result. The routes are differentiable: the kernel
+wrappers are autograd Functions whose backward is a kernel (fused backward;
+the recurrence run in reverse), or with ``checkpointed`` the same as
+dispatcher ops, and the plain versions are torch ops under plain autograd.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +35,12 @@ from .selective_scan_fused import selective_scan_fused, selective_scan_fused_pla
 from .selective_scan_ref import softplus
 
 IMPLS = ("kernel", "plain", "plain64")
+
+# The dispatcher ops that produce the scans' outputs on the "kernel" route
+# with ``checkpointed``: a selective activation checkpoint keeps their
+# outputs and recomputes the rest (models/vss.py), the JAX package's
+# save_only_these_names("scan_out").
+SCAN_OUTPUT_OPS = (torch.ops.vmasr.fused_scan.default, torch.ops.vmasr.linear_recurrence.default)
 
 
 def selective_scan(
@@ -47,9 +54,12 @@ def selective_scan(
     delta_softplus: bool = True,
     fp32_io: bool = False,
     impl: str = "kernel",
+    checkpointed: bool = False,
 ) -> torch.Tensor:
     """Returns y: (B, L, K, D) in u's dtype; scan maths in fp32 (fp64 for
-    ``impl="plain64"``)."""
+    ``impl="plain64"``). ``checkpointed``: the call runs inside a selective
+    activation checkpoint, so the kernel route takes the dispatcher ops of
+    ``SCAN_OUTPUT_OPS``, whose outputs the checkpoint's policy keeps."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if fp32_io:
@@ -70,7 +80,8 @@ def selective_scan(
         # JAX package, which keeps the fused kernel to lane-dense widths.
         and k * d >= 128
     ):
-        fused = selective_scan_fused if impl == "kernel" else selective_scan_fused_plain
+        fused = functools.partial(selective_scan_fused, as_op=checkpointed) \
+            if impl == "kernel" else selective_scan_fused_plain
         y = fused(
             u.reshape(b, l, k * d).contiguous(),
             dts.to(u.dtype).reshape(b, l, k * d).contiguous(),
@@ -83,7 +94,8 @@ def selective_scan(
         )
         return y.reshape(b, l, k, d).to(in_dtype)
 
-    recur = linear_recurrence if impl == "kernel" else linear_recurrence_plain
+    recur = functools.partial(linear_recurrence, as_op=checkpointed) \
+        if impl == "kernel" else linear_recurrence_plain
     uf = u.to(maths)
     dt = dts.to(maths)
     if dt_bias is not None:

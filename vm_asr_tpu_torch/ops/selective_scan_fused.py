@@ -6,8 +6,10 @@ Port of vm_asr_tpu/ops/selective_scan_fused.py:
     h  = scan(a, b);            y = C_k·h + D_skip·u
 
 with channel q = k·D + d and B, C given per direction k.
-``selective_scan_fused`` is a ``torch.autograd.Function`` (the JAX package's
-``custom_vjp``). For CUDA tensors its forward launches the kernel in
+``selective_scan_fused`` is differentiable (the JAX package's
+``custom_vjp``): an autograd Function, or inside an activation checkpoint the
+dispatcher op ``torch.ops.vmasr.fused_scan``, whose outputs the checkpoint
+can keep. For CUDA tensors its forward launches the kernel in
 ``csrc/fused_scan.cu`` (the counterpart of the TPU kernel
 ``_fused_fwd_pallas``, one launch per call) and keeps the chunk-entry states
 ``H0`` and the chunk length; its backward launches the kernel in
@@ -391,30 +393,66 @@ def selective_scan_fused_bwd(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip, h0,
     return (du, ddts, dbs, dcs, work[:kd], work[kd:2 * kd], work[2 * kd:3 * kd])
 
 
+def _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+    """(y, H0): the kernel for CUDA tensors, the plain version and an empty
+    H0 for CPU tensors."""
+    if _on_cpu(u, dts, bs, cs, a_neg, dt_bias, d_skip):
+        return (selective_scan_fused_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group),
+                u.new_empty(0, dtype=torch.float32))
+    y, h0, _ = selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
+    return y, h0
+
+
+def _fused_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7], output[1])
+    ctx.k_group = inputs[7]
+
+
+def _fused_backward(ctx, dy, _dh0=None):
+    u, dts, bs, cs, a_neg, dt_bias, d_skip, h0 = ctx.saved_tensors
+    grads = selective_scan_fused_bwd(
+        u, dts, bs, cs, dy.to(u.dtype).contiguous(), a_neg, dt_bias, d_skip, h0,
+        chunk_length(*u.shape), ctx.k_group)
+    return (*grads, None)
+
+
 class _FusedScan(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
-        if _on_cpu(u, dts, bs, cs, a_neg, dt_bias, d_skip):
-            y, h0, chunk = selective_scan_fused_plain(
-                u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group), None, None
-        else:
-            y, h0, chunk = selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias,
-                                                    d_skip, k_group)
-        ctx.save_for_backward(u, dts, bs, cs, a_neg, dt_bias, d_skip, h0)
-        ctx.chunk, ctx.k_group = chunk, k_group
-        return y
+    """The route of a scan outside an activation checkpoint: an autograd
+    Function costs the host less per call than the dispatcher op below."""
 
     @staticmethod
-    def backward(ctx, dy):
-        u, dts, bs, cs, a_neg, dt_bias, d_skip, h0 = ctx.saved_tensors
-        grads = selective_scan_fused_bwd(
-            u, dts, bs, cs, dy.to(u.dtype).contiguous(), a_neg, dt_bias, d_skip, h0,
-            ctx.chunk, ctx.k_group)
-        return (*grads, None)
+    def forward(ctx, u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+        y, h0 = _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
+        _fused_setup(ctx, (u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group), (y, h0))
+        return y
+
+    backward = staticmethod(_fused_backward)
+
+
+@torch.library.custom_op(
+    "vmasr::fused_scan", mutates_args=(),
+    schema="(Tensor u, Tensor dts, Tensor bs, Tensor cs, Tensor a_neg, Tensor dt_bias, "
+           "Tensor d_skip, int k_group) -> (Tensor, Tensor)")
+def fused_scan_op(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+    """The same forward as one dispatcher op returning (y, H0), whose outputs
+    a selective activation checkpoint can name and keep (models/vss.py)."""
+    return _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
+
+
+@fused_scan_op.register_fake
+def _(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+    if u.device.type == "cpu":
+        return torch.empty_like(u), u.new_empty(0, dtype=torch.float32)
+    bsz, l, kd = u.shape
+    chunk = chunk_length(bsz, l, kd)
+    return torch.empty_like(u), u.new_empty((bsz, -(-l // chunk), kd), dtype=torch.float32)
+
+
+fused_scan_op.register_autograd(_fused_backward, setup_context=_fused_setup)
 
 
 def selective_scan_fused(u, dts, bs, cs, a_neg, dt_bias, d_skip,
-                         k_group: int) -> torch.Tensor:
+                         k_group: int, as_op: bool = False) -> torch.Tensor:
     """Fused N=1 selective scan, differentiable in its seven tensor inputs.
     Returns y: (B, L, K·D) in u's dtype.
 
@@ -424,11 +462,15 @@ def selective_scan_fused(u, dts, bs, cs, a_neg, dt_bias, d_skip,
       a_neg:   (K·D,) float32, A = -exp(A_logs)
       dt_bias: (K·D,) float32
       d_skip:  (K·D,) float32
+      as_op:   run as the dispatcher op ``torch.ops.vmasr.fused_scan``, which
+               an activation checkpoint can keep; else an autograd Function.
     CPU tensors take the plain versions; CUDA tensors launch the kernels,
     which take contiguous tensors of these shapes and dtypes and nothing
     else."""
     if not _on_cpu(u, dts, bs, cs, a_neg, dt_bias, d_skip) and u.device.type != "cuda":
         raise ValueError(f"expected CUDA or CPU tensors, got {u.device}")
+    if as_op:
+        return torch.ops.vmasr.fused_scan(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)[0]
     return _FusedScan.apply(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
 
 
