@@ -9,7 +9,8 @@ raising on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: compile the CUDA kernels from vm_asr_tpu_torch/csrc with nvcc and
-   print what ptxas made of each kernel (registers, shared memory, spills).
+   print what ptxas made of each kernel (registers, shared memory, spills);
+   compile the host C++ library (native/src, g++) and print its seconds.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the flagship 48 kHz forward (batch 1, and batch 8, the
    largest segment bucket) and train step (batch 4) give it, and at shapes
@@ -63,7 +64,17 @@ raising on failure:
    (the fused backward at D = 512) against the plain-fp64-scan witness; and
    a SINGLE generator step with and without USE_CHECKPOINT (gradients,
    launches and peak memory).
-11. the kernels line, the card line, and the result line.
+11. raw corpus: write a VCTK-0.92-shaped FLAC tree (p225, p226, p227 and p280, which the
+   conversion skips; 12 utterances of 3 s each at 48 kHz, 16-bit) with the
+   encoder of tests/flac_ref.py, decode every file bitwise back to its PCM,
+   time DegradingSampler.sample with the C++ resampler against scipy at
+   eight drawn input rates (within 1e-5) and the threads pipeline against
+   the worker-process pipeline at batch 4 and 24; then the CLI trains the
+   flagship at full width and depth from the FLAC tree (converted by
+   get_loaders, DATA.PIPELINE grain, 4 workers, TRAIN_SPLIT [2,1], 5 steps,
+   a validation batch, one step profiled, checkpoints) and runs --eval on
+   the held-out speaker's converted clips, with exact launch counts.
+12. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -88,7 +99,7 @@ import torch
 
 from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
-from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK
+from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK, native
 from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
 from vm_asr_tpu_torch.models import SS2D, get_discriminators, get_generator, set_scan_impl
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
@@ -158,6 +169,8 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 # log-magnitude exp2 (8.0e-7 measured on an H100); a wrong kernel moves the
 # output by O(1).
 MODEL_REL_TOL = 1e-5
+# The host C++ resampler against scipy (the JAX package's bar, tests/test_native.py).
+NATIVE_TOL = 1e-5
 # USE_CHECKPOINT's bf16 step against the same step without it, in bars of
 # the train-gradient check: bf16 runs with it against one without, and two
 # without it, read 2.42-4.15 of the bar on an NVIDIA H100 80GB HBM3 at 700 W
@@ -897,6 +910,257 @@ def cli_phase(smi: str, bare_idle):
     return report, train_counts
 
 
+RAW_SPEAKERS = ("p225", "p226", "p227", "p280")  # p280: skipped by the conversion
+RAW_UTTERANCES = 12  # two training speakers: 20 train items (5 steps) and 4 valid
+RAW_SECONDS = 3.0
+RAW_TRIM = (0.10, 2.90)  # each utterance's silence-label window, seconds
+
+
+def write_flac_corpus(data_path: Path):
+    """A VCTK-0.92-shaped FLAC tree, 16-bit at 48 kHz, written by the repo's
+    pure-Python encoder (tests/flac_ref.py), and its silence-labels file.
+    Returns ({relative path: PCM}, labels path, seconds)."""
+    # By path: the card's machine may have a package named "tests" installed.
+    spec = importlib.util.spec_from_file_location("flac_ref", ROOT / "tests" / "flac_ref.py")
+    flac_ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flac_ref)
+
+    t0 = time.perf_counter()
+    flac_root = data_path / "VCTK-Corpus-0.92" / "wav48_silence_trimmed"
+    pcm, rows = {}, []
+    for s, spk in enumerate(RAW_SPEAKERS):
+        (flac_root / spk).mkdir(parents=True)
+        for u in range(1, RAW_UTTERANCES + 1):
+            x = np.round(speech_like(RAW_SECONDS, 48000, seed=100 * s + u) * 32767)
+            rel = f"{spk}/{spk}_{u:03d}_mic1.flac"
+            pcm[rel] = x.astype(np.int64)
+            # One file with fixed-predictor subframes and Rice residuals; the
+            # rest verbatim (the encoder is pure Python, ~30x slower).
+            kw = dict(mode="fixed2", rice_param=10) if (s, u) == (0, 1) else dict(mode="verbatim")
+            (flac_root / rel).write_bytes(flac_ref.encode_flac(pcm[rel][None], 48000,
+                                                               blocksize=4096, **kw))
+            rows.append(f"{spk}_{u:03d} {RAW_TRIM[0]:.2f} {RAW_TRIM[1]:.2f}\n")
+    labels = data_path / "vctk-silences.0.92.txt"
+    labels.write_text("".join(rows))
+    return pcm, labels, time.perf_counter() - t0
+
+
+def scipy_resample(x, up, down):
+    """The scipy path the port took before the host library (``resample_poly``
+    along the last axis, cast to float32)."""
+    from scipy.signal import resample_poly
+
+    return resample_poly(x, up, down, axis=-1).astype(np.float32, copy=False)
+
+
+def sample_native_vs_scipy(sampler, draws: int = 8):
+    """DegradingSampler.sample of one item at the eight input rates drawn as
+    sampler_times draws them: host seconds with the C++ resampler and with
+    scipy's, and the largest |difference| of the degraded inputs."""
+    from vm_asr_tpu_torch.data import native
+
+    rows = []
+    for seed in range(draws):
+        rate = sampler._draw_input_sr(np.random.default_rng([seed, 0]))
+        t = time.perf_counter()
+        x_nat = sampler.sample(0, np.random.default_rng([seed, 0]))[0]
+        t_nat = time.perf_counter() - t
+        orig, native.resample_poly = native.resample_poly, scipy_resample
+        try:
+            t = time.perf_counter()
+            x_sci = sampler.sample(0, np.random.default_rng([seed, 0]))[0]
+            t_sci = time.perf_counter() - t
+        finally:
+            native.resample_poly = orig
+        rows.append(dict(rate=rate, native_s=t_nat, scipy_s=t_sci,
+                         max_abs_diff=float(np.abs(x_nat - x_sci).max())))
+    return rows
+
+
+def pipeline_seconds(sampler, batch: int, n_items: int):
+    """Host seconds a batch of the threads and the worker-process pipelines
+    over ``n_items`` items (the corpus repeated), 4 threads or workers, and
+    the first batch's wait."""
+    from vm_asr_tpu_torch.data import WorkerPipeline
+
+    out = {}
+    indices = [i % len(sampler.dataset) for i in range(n_items)]
+    for name, cls in (("threads", DataPipeline), ("workers", WorkerPipeline)):
+        pipe = cls(sampler, batch_size=batch, indices=indices, num_workers=4, seed=5)
+        t0 = time.perf_counter()
+        first, n = None, 0
+        for _ in pipe:
+            n += 1
+            first = first or time.perf_counter() - t0
+        total = time.perf_counter() - t0
+        out[name] = dict(batches=n, seconds=total, per_batch=total / n, first_batch=first)
+    return out
+
+
+def raw_corpus_phase(smi: str):
+    """From a raw VCTK-0.92-shaped FLAC tree through the port's CLI: write
+    the tree, decode it bitwise with the host C++ library, time the
+    degradation (C++ against scipy) and the two pipelines, train the
+    flagship one epoch with DATA.PIPELINE grain (the worker pipeline) from
+    the tree, converted by get_loaders, then --eval on the held-out
+    speaker's converted clips; exact launch counts. Returns (report, the
+    training run's launches)."""
+    from vm_asr_tpu_torch.data import VCTKDataset, vctk
+
+    t0 = time.perf_counter()
+    native.load()  # built in the build phase
+
+    work = OUT / "raw"  # the working directory: the Tester's CSV lands here
+    data = ROOT / "build" / "chip_smoke_raw" / "data"  # ~14 MB of FLAC, ~13 MB of wav
+    runs = ROOT / "build" / "chip_smoke_raw" / "runs"  # checkpoints, ~1 GB a save
+    for d in (work, data.parent):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    pcm, labels, write_s = write_flac_corpus(data)
+    flac_root = data / "VCTK-Corpus-0.92" / "wav48_silence_trimmed"
+    flac_bytes = sum((flac_root / rel).stat().st_size for rel in pcm)
+    print(f"corpus: {len(pcm)} FLAC files ({len(RAW_SPEAKERS)} speakers x {RAW_UTTERANCES}, "
+          f"{RAW_SECONDS} s each at 48 kHz, 16-bit), {flac_bytes / 1e6:.2f} MB, written in "
+          f"{write_s:.2f} s (tests/flac_ref.py, host)  [{smi}]")
+
+    decode_s = 0.0
+    for rel, want in pcm.items():
+        t = time.perf_counter()
+        audio, sr = native.decode_flac(str(flac_root / rel))
+        decode_s += time.perf_counter() - t
+        if sr != 48000 or audio.shape != (1, want.size) or \
+                not np.array_equal(audio[0] * 32768.0, want):
+            raise AssertionError(f"decode {rel}: not the encoder's PCM bit for bit")
+    pcm_bytes = 2 * sum(x.size for x in pcm.values())
+    print(f"decode: {len(pcm)} files bitwise the encoder's PCM; {flac_bytes / 1e6:.2f} MB of "
+          f"FLAC ({pcm_bytes / 1e6:.2f} MB of PCM) in {decode_s:.3f} s, "
+          f"{flac_bytes / 1e6 / decode_s:.1f} MB/s of FLAC (host)  [{smi}]")
+
+    cfg = flagship_config(amp=True, gan=True)
+    probe = data.parent / "probe"  # the degradation and the pipelines read a converted copy
+    n_conv = vctk.convert_flac_corpus(str(flac_root), str(probe), str(labels))
+    ds = VCTKDataset(str(probe), train_split=(3, 0))
+    sampler = DegradingSampler(ds, cfg, training=True)
+    degrade = sample_native_vs_scipy(sampler)
+    for r in degrade:
+        print(f"DegradingSampler.sample at a drawn input rate of {r['rate']} Hz: native "
+              f"{r['native_s']:.4f} s, scipy {r['scipy_s']:.4f} s, max |native - scipy| "
+              f"{r['max_abs_diff']:.3e} (host)  [{smi}]")
+    worst = max(r["max_abs_diff"] for r in degrade)
+    if n_conv != 3 * RAW_UTTERANCES or len(ds) != n_conv or not worst <= NATIVE_TOL:
+        raise AssertionError(f"degradation: {n_conv} converted, {len(ds)} items, native vs "
+                             f"scipy {worst:.3e} (bar {NATIVE_TOL})")
+    pipes = {}
+    for batch in (TRAIN_BATCH, 24):
+        pipes[batch] = pipeline_seconds(sampler, batch, n_items=4 * len(ds))
+        for name, r in pipes[batch].items():
+            print(f"pipeline {name}, batch {batch}, 4 {'threads' if name == 'threads' else 'worker processes'}: "
+                  f"{r['batches']} batches in {r['seconds']:.3f} s, {r['per_batch']:.4f} s a "
+                  f"batch (first batch {r['first_batch']:.3f} s; host)  [{smi}]")
+
+    # Train the flagship from the FLAC tree: get_loaders converts it.
+    timed = {}
+    convert = vctk.convert_flac_corpus
+
+    def timed_convert(*a, **kw):
+        t = time.perf_counter()
+        n = convert(*a, **kw)
+        timed.update(files=n, seconds=time.perf_counter() - t)
+        return n
+
+    opts = ["DATA.DATA_PATH", f"{data}/", "DATA.FLAC2WAV.TIMESTAMPS", str(labels),
+            "DATA.TRAIN_SPLIT", "[2,1]", "DATA.USE_QUANTITY", "1.0", "DATA.PIPELINE", "grain",
+            "DATA.NUM_WORKERS", "4", "DATA.VALID_SPLIT", "0.2", "TENSORBOARD.ENABLE", "False",
+            "OUTPUT", str(runs)]
+    run_dir = runs / "DualStreamInteractiveMambaUNet" / "raw"
+    wav_root = data / "VCTK-Corpus-0.92" / "wav48_silence_trimmed_wav"
+    cwd = os.getcwd()
+    os.chdir(work)
+    vctk.convert_flac_corpus = timed_convert
+    try:
+        zero_counts()
+        mode, trainer = cli.run(["--cfg", str(CONFIG), "--tag", "raw", "--opts",
+                                 "TRAIN.EPOCHS", "1", "PROFILE_STEPS", "1"] + opts)
+        train_counts = read_counts()
+    finally:
+        vctk.convert_flac_corpus = convert
+        os.chdir(cwd)
+    timing = trainer.timings[-1]
+    n, v = timing["steps"], len(trainer.valid_loader)
+    want = dict(selective_scan_fused=30 * (n + v), selective_scan_fused_bwd=30 * n,
+                linear_recurrence=4 * (n + v), linear_recurrence_reverse=4 * n)
+    converted = sorted(str(p.relative_to(wav_root)) for p in wav_root.rglob("*.wav"))
+    log = trainer.train_metrics.result()
+    files = sorted(p.name for p in run_dir.glob("checkpoint-*.pth"))
+    print(f"raw train: converted {timed.get('files')} files in {timed.get('seconds', 0):.3f} s "
+          f"(get_loaders, {len(converted)} wavs, p280 skipped); {type(trainer.train_loader).__name__}"
+          f", {n} steps, {v} validation batch(es), launches {train_counts}; total loss "
+          f"{log.get('total_loss', float('nan')):.4f}  [{smi}]")
+    want_wavs = sorted(f"{spk}/{spk}_{u:03d}.wav" for spk in RAW_SPEAKERS[:3]
+                       for u in range(1, RAW_UTTERANCES + 1))
+    if (mode, n, v) != ("train", 5, 1) or train_counts != want or converted != want_wavs or \
+            timed.get("files") != len(want_wavs) or \
+            not Path(f"{wav_root}.converted").is_file() or \
+            type(trainer.train_loader).__name__ != "WorkerPipeline" or \
+            not all(np.isfinite(x) for x in log.values()) or \
+            files != [f"checkpoint-{k}-{m}.pth" for k in ("best", "latest") for m in ("G", "mpd")]:
+        raise AssertionError(f"raw train: want 5 steps, 1 validation batch, launches {want}, "
+                             f"the converted tree, the worker pipeline, finite logs and "
+                             f"checkpoints; got {mode}, {n}, {v}, {train_counts}, "
+                             f"{len(converted)} wavs, {files}, {log}")
+    steps, waits = timing["step_s"], timing["data_wait_s"]
+    prof = timing["profile"]
+    warm = steps[2:]  # the first step is cold, the second profiled
+    busy = prof["device_busy_ms"]
+    warm_ms = 1e3 * statistics.median(warm)
+    idle = "not measured" if busy is None else f"{1 - busy / warm_ms:.3f}"
+    print(f"raw train: {statistics.median(warm):.4f} s/it median over the warm steps 3..{n} "
+          f"(first {steps[0]:.4f} s, profiled {steps[1]:.4f} s; host clock), data wait "
+          f"{waits[0]:.4f} s for the first batch and {statistics.mean(waits[1:]):.4f} s a step "
+          f"after; epoch {timing['epoch_s']:.3f} s, validation {timing['valid_s']:.3f} s, "
+          f"checkpoint writes {timing['save_ms']:.1f} ms  [{smi}]")
+    print(f"raw train profiled step: device busy {fmt_ms(busy)} in {prof['device_events']} "
+          f"device events; idle share {idle} of the median warm step ({warm_ms:.2f} ms), "
+          f"{'not measured' if busy is None else '%.3f' % prof['idle_share']} of the traced "
+          f"step's own wall ({prof['wall_ms']:.2f} ms)  [{smi}]")
+    del trainer
+
+    # Evaluate the best checkpoint on the held-out speaker's converted clips.
+    os.chdir(work)
+    try:
+        zero_counts()
+        mode, tester = cli.run(["--cfg", str(CONFIG), "--eval", "--tag", "16000_48000",
+                                "--resume", str(run_dir), "--opts",
+                                "TEST.RESULTS_DIR", str(work / "results")] + opts)
+        eval_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    segs = {tester._num_segments(r["samples"]) for r in tester.rows}
+    per_clip = sum(segment_bucket_counts(max(segs)).values()) if segs else 0
+    keys = len(segment_bucket_counts(max(segs))) if segs and max(segs) > 1 else 1
+    forwards = (len(tester.rows) + 1) * per_clip + keys * 3 * 3 * tester_module.MEASURE_ITERS
+    eval_want = dict(selective_scan_fused=30 * forwards, selective_scan_fused_bwd=0,
+                     linear_recurrence=4 * forwards, linear_recurrence_reverse=0)
+    names = sorted(r["name"] for r in tester.rows)
+    rtf = [r["rtf"] for r in tester.rows]
+    rtf_c = [r["rtf_compute"] for r in tester.rows]
+    print(f"raw eval: {len(tester.rows)} clips of {segs} segments ({names[0]}..{names[-1]}), "
+          f"RTF median {statistics.median(rtf):.4f} (min {min(rtf):.4f}, max {max(rtf):.4f}), "
+          f"rtf_compute median {statistics.median(rtf_c):.4f}; launches {eval_counts}  [{smi}]")
+    if mode != "eval" or len(tester.rows) != RAW_UTTERANCES or len(segs) != 1 or \
+            not all(x.startswith("p227_") for x in names) or eval_counts != eval_want or \
+            not all(np.isfinite([r["lsd"], r["snr"], r["rtf"]]).all() for r in tester.rows):
+        raise AssertionError(f"raw eval: want {RAW_UTTERANCES} p227 clips of one length, "
+                             f"launches {eval_want}, finite metrics; got {names}, {segs}, "
+                             f"{eval_counts}")
+    print(f"raw corpus phase in {time.perf_counter() - t0:.1f} s  [{smi}]")
+    report = dict(library=native.library_path().name, write_s=write_s,
+                  flac_bytes=flac_bytes, decode_s=decode_s, degrade=degrade, pipelines=pipes,
+                  conversion=timed, train=timing, eval_rows=tester.rows,
+                  launches=dict(train=train_counts, eval=eval_counts))
+    return report, train_counts
+
+
 VARIANT_YAMLS = {"single": "vm_asr_48k_MPD_SINGLE.yaml", "p2m": "vm_asr_48k_MPD_P2M.yaml",
                  "m2p": "vm_asr_48k_MPD_M2P.yaml"}
 # The other generator options, each on the flagship config: MODEL options
@@ -1309,6 +1573,10 @@ def main() -> int:
     built = build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, in parallel)")
     report["build_s"] = time.perf_counter() - t0
+    # The host C++ library, which the data phases load; a failed build fails the run.
+    report["host_build_s"] = native.build()
+    print(f"built the host library {native.library_path().name} in "
+          f"{report['host_build_s']:.2f} s (g++; 0.00: already built)  [{smi}]")
     report["ptxas"] = {src: ptxas_info(src) for src in SOURCES}
     for src, lines in report["ptxas"].items():
         print(f"ptxas, {src}:")
@@ -1633,6 +1901,10 @@ def main() -> int:
     report["variants"], single_launches = variants_phase(smi)
     print(f"variants phase in {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("raw corpus: host C++ library, FLAC decode, degradation, pipelines, then the "
+               "flagship trained from a FLAC tree (DATA.PIPELINE grain) and --eval")
+    report["raw_corpus"], raw_launches = raw_corpus_phase(smi)
+
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
         forward's (batch 1), of the per-shape rows."""
@@ -1658,6 +1930,7 @@ def main() -> int:
                     bound_ms=sum(x["bound_ms"] for x in sums), bound_by="bytes",
                     library_ms=None, check="pass", cli_launches=cli_launches[name],
                     single_cli_launches=single_launches[name],
+                    raw_corpus_launches=raw_launches[name],
                     per="one batch-4 train step, summed over its calls", **extra)
 
     bwd_step = per_train_step("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")

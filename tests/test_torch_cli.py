@@ -23,7 +23,9 @@ from vm_asr_tpu.models import get_model
 from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.compat import flax_params_to_state_dict
 from vm_asr_tpu_torch.core.logging import create_logger
+from vm_asr_tpu_torch.data import WorkerPipeline
 from vm_asr_tpu_torch.train.tester import COMPUTE_COLUMNS, CSV_COLUMNS
+from tests.torch_native import jax_uses_port_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -139,8 +141,11 @@ def test_card_by_default(mode, tmp_path):
 
 
 def test_unported_options_refused(tmp_path):
+    """STACKED_EXECUTION is refused; DATA.PIPELINE grain, once refused,
+    trains on the worker-process pipeline."""
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["--cfg", CFG, "--throughput", "--device", "cpu", "--opts", *TINY,
                   "OUTPUT", str(tmp_path), "MODEL.VSSM.STACKED_EXECUTION", "True"])
-    with pytest.raises(NotImplementedError, match="grain"):
-        cli.main(_train_args(tmp_path, 1) + ["DATA.PIPELINE", "grain"])
+    mode, trainer = cli.run(_train_args(tmp_path, 1) + ["DATA.PIPELINE", "grain"])
+    assert mode == "train" and isinstance(trainer.train_loader, WorkerPipeline)
+    assert trainer.timings[0]["steps"] == 3 and trainer.gen_state.step == 3

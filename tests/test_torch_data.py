@@ -1,36 +1,33 @@
 """The port's data side (dsp/degrade.py, data/vctk.py, data/pipeline.py)
 against the JAX package's, on the CPU.
 
-Everything here is numpy/scipy on the host, so the bar is equality: the same
+Everything here runs on the host, so the bar is equality: the same
 filters, the same samples, the same sample ids in the same order, and
-batches bitwise equal over two epochs, for training and for eval. The JAX
-package's C++ resampler and filter (``native/``) are not built here, so it
-takes its scipy path, the one the port has.
+batches bitwise equal over two epochs, for training and for eval. Both
+packages filter and resample 1-D signals with the same C++ library: the
+JAX binding is pointed at the port's build of it (tests/torch_native.py).
 """
 
 import importlib
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from vm_asr_tpu.core import default_config as jax_default_config
-from vm_asr_tpu.data import native as jax_native
 from vm_asr_tpu.data import pipeline as jax_pipeline
 from vm_asr_tpu.data import vctk as jax_vctk
 from vm_asr_tpu_torch.core import default_config
-from vm_asr_tpu_torch.data import pipeline, vctk
+from vm_asr_tpu_torch.data import WorkerPipeline, pipeline, vctk
+from tests.torch_native import jax_uses_port_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The packages export the function `degrade`, which shadows its module.
 degrade = importlib.import_module("vm_asr_tpu_torch.dsp.degrade")
 jax_degrade = importlib.import_module("vm_asr_tpu.dsp.degrade")
-
-
-def setup_module():
-    assert not jax_native.available(), "the JAX package must take its scipy path here"
 
 
 def _tiny(c, training=True, weighted=False):
@@ -219,14 +216,81 @@ def test_batch_to_device_cpu():
     assert torch.equal(out["wave_input"], torch.ones(2, 1, 8))
 
 
-def test_get_loaders_refusals(tmp_path):
+def test_get_loaders_without_a_corpus_fails(tmp_path):
+    """Neither the trimmed wav tree nor the raw FLAC tree: the dataset
+    raises, as the JAX package's does, and no marker is written."""
     cfg = _tiny(default_config())
-    cfg.DATA.DATA_PATH = str(tmp_path)
-    with pytest.raises(FileNotFoundError, match="FLAC conversion"):
+    jcfg = _tiny(jax_default_config())
+    cfg.DATA.DATA_PATH = jcfg.DATA.DATA_PATH = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="SyntheticVCTK") as port:
         pipeline.get_loaders(cfg)
+    with pytest.raises(FileNotFoundError) as ref:
+        jax_pipeline.get_loaders(jcfg)
+    root = f"{tmp_path}/VCTK-Corpus-0.92/wav48_silence_trimmed_wav."
+    assert str(port.value).startswith(f"VCTK corpus not found at {root}")
+    assert str(ref.value).startswith(f"VCTK corpus not found at {root}")
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_get_loaders_converts_a_raw_corpus(tmp_path):
+    """Only the raw FLAC tree: get_loaders converts it, writes the marker,
+    and reads the converted tree; a second call finds the tree and converts
+    nothing."""
+    from tests.test_torch_corpus import build_flac_corpus
+
+    data_path, labels = build_flac_corpus(tmp_path / "data", utterances=2, seconds=0.3)
+    cfg = _tiny(default_config())
+    cfg.DATA.DATA_PATH, cfg.DATA.FLAC2WAV.TIMESTAMPS = data_path, labels
+    cfg.DATA.TRAIN_SPLIT = [2, 1]
+    cfg.DATA.USE_QUANTITY = 1.0
+    train, valid = pipeline.get_loaders(cfg)
+    root = tmp_path / "data" / "VCTK-Corpus-0.92" / "wav48_silence_trimmed_wav"
+    assert (tmp_path / "data" / "VCTK-Corpus-0.92" / "wav48_silence_trimmed_wav.converted"
+            ).read_text() == "ok\n"
+    assert sorted(p.name for p in root.iterdir()) == ["p225", "p226", "p227"]
+    assert len(train.indices) + len(valid.indices) == 4  # two speakers of two
+    stamp = (root / "p225" / "p225_001.wav").stat().st_mtime_ns
+    pipeline.get_loaders(cfg)
+    assert (root / "p225" / "p225_001.wav").stat().st_mtime_ns == stamp
+
+
+def test_get_loaders_other_ranks_wait_for_the_marker(tmp_path, monkeypatch):
+    """A rank other than 0 converts nothing: it waits for rank 0's marker."""
+    from tests.test_torch_corpus import build_flac_corpus
+
+    data_path, labels = build_flac_corpus(tmp_path / "data", utterances=1, seconds=0.3)
+    cfg = _tiny(default_config())
+    cfg.DATA.DATA_PATH, cfg.DATA.FLAC2WAV.TIMESTAMPS = data_path, labels
+    root = tmp_path / "data" / "VCTK-Corpus-0.92" / "wav48_silence_trimmed_wav"
+    monkeypatch.setattr(pipeline, "process_rank", lambda: 1)
+    slept = []
+
+    def sleep(s):  # rank 0 "finishes" while rank 1 waits
+        slept.append(s)
+        root.mkdir(parents=True, exist_ok=True)
+        Path(str(root) + ".converted").write_text("ok\n")
+
+    monkeypatch.setattr(pipeline.time, "sleep", sleep)
+    assert pipeline.ensure_wav_tree(cfg) == str(root)
+    assert slept == [5.0] and list(root.iterdir()) == []
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_get_loaders_pipeline_grain(mode):
+    """DATA.PIPELINE grain gives worker pipelines whose batches are bitwise
+    the threads pipelines' (and so the JAX package's DataPipeline's)."""
+    training = mode == "train"
+    cfg = _tiny(default_config(), training=training)
+    threads_cfg = _tiny(default_config(), training=training)
     cfg.DATA.PIPELINE = "grain"
-    with pytest.raises(NotImplementedError, match="grain"):
-        pipeline.get_loaders(cfg, dataset=vctk.SyntheticVCTK(n_items=4, sr=16000))
+    kw = dict(n_items=13, sr=16000, duration=0.3, training=training)
+    got = pipeline.get_loaders(cfg, dataset=vctk.SyntheticVCTK(**kw))
+    want = pipeline.get_loaders(threads_cfg, dataset=vctk.SyntheticVCTK(**kw))
+    got, want = (got, want) if training else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert isinstance(g, WorkerPipeline) and g.num_workers == 2
+        assert len(g) == len(w) > 0
+        _assert_batches_equal(list(g), list(w))
 
 
 def test_pipeline_raises_a_worker_error():

@@ -25,6 +25,7 @@ from vm_asr_tpu_torch.data import Batch, SyntheticVCTK
 from vm_asr_tpu_torch.models import get_generator
 from vm_asr_tpu_torch.train import Tester as PortTester
 from vm_asr_tpu_torch.train.tester import COMPUTE_COLUMNS, CSV_COLUMNS
+from tests.torch_native import jax_uses_port_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # Metrics of the same fp32 forward in two frameworks: the outputs differ by

@@ -44,6 +44,7 @@ from vm_asr_tpu_torch.core import default_config
 from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, train_valid_split
 from vm_asr_tpu_torch.models import get_discriminators, get_generator
 from vm_asr_tpu_torch.train import Trainer as PortTrainer
+from tests.torch_native import jax_uses_port_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The epoch's logs: means over the steps; observed ≤ 5.6e-6.

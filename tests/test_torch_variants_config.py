@@ -35,6 +35,7 @@ from vm_asr_tpu_torch.models import (
     get_generator,
 )
 from vm_asr_tpu_torch.train import GenState, make_optimizer
+from tests.torch_native import jax_uses_port_native  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -14,8 +14,10 @@ random input rate to N (the reference's specialised models); TAG is
 Training writes reference-layout ``checkpoint-*-{G,mpd}.pth`` files to
 OUTPUT/MODEL.NAME/TAG and resumes from them; eval and inference load the
 run's ``*best*G*.pth`` (or its latest). Everything runs on the card unless
-``--device cpu`` is given. Orbax checkpoints of the JAX package are not read
-yet.
+``--device cpu`` is given. A run of the JAX package (orbax checkpoints)
+becomes such a run folder with ``scripts/jax_checkpoint_to_pth.py``, on a
+machine with JAX. Training on VCTK reads the trimmed wav tree under
+DATA.DATA_PATH, converted from the raw FLAC corpus at first use.
 """
 
 from __future__ import annotations

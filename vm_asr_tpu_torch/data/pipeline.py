@@ -9,14 +9,20 @@ and random-rate degradation).
   ``default_rng([base_seed, bi·B + j])``, and an epoch's order from
   ``default_rng(seed + epoch)``, so batches are bitwise the JAX package's.
 - Every training batch has the same shape (SEGMENT seconds at TARGET_SR).
-- A thread pool overlaps scipy's filtering and resampling with the device's
-  work. The threads touch numpy only: ``batch_to_device`` runs on the
-  caller's thread, so no CUDA call is made from a pipeline thread.
+- A thread pool overlaps the degradation (the host C++ library, scipy for
+  what it does not take) with the device's work. The threads touch numpy
+  only: ``batch_to_device`` runs on the caller's thread, so no CUDA call is
+  made from a pipeline thread. ``DATA.PIPELINE grain`` takes the
+  worker-process pipeline instead (``worker_pipeline.py``), with the same
+  batches.
+- ``get_loaders`` converts the raw VCTK 0.92 FLAC tree to the trimmed wav
+  tree when only the former is on disk (``ensure_wav_tree``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
@@ -113,6 +119,37 @@ class DegradingSampler:
         return x, audio, highcut, name, pad
 
 
+def build_batch(sampler: DegradingSampler, members: Sequence[int], base_seed: int,
+                positions: Sequence[int]) -> Batch:
+    """The batch of corpus items ``members``: item j draws its randomness
+    from ``default_rng([base_seed, positions[j]])``, its position in the
+    epoch."""
+    outs = [sampler.sample(index, np.random.default_rng([base_seed, pos]))
+            for index, pos in zip(members, positions)]
+    xs, ys, hcs, names, pads = zip(*outs)
+    return Batch(
+        wave_input=np.stack(xs)[:, None, :],
+        wave_target=np.stack(ys)[:, None, :],
+        highcut=np.asarray(hcs, np.int32),
+        names=list(names),
+        pad_lengths=np.asarray(pads, np.int32),
+    )
+
+
+def epoch_order(indices: Sequence[int], shuffle: bool, seed: int, epoch: int) -> List[int]:
+    """An epoch's order of ``indices``: shuffled by ``default_rng(seed +
+    epoch)`` when ``shuffle``."""
+    idx = list(indices)
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(idx)
+    return idx
+
+
+def epoch_base_seed(seed: int, epoch: int) -> int:
+    """The first word of every item's seed in an epoch."""
+    return (seed * 1_000_003 + epoch) % (2**31)
+
+
 class DataPipeline:
     """Shuffled, threaded, fixed-shape batch iterator."""
 
@@ -137,30 +174,16 @@ class DataPipeline:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
-    def _epoch_indices(self) -> List[int]:
-        idx = list(self.indices)
-        if self.shuffle:
-            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
-        return idx
-
     def __iter__(self) -> Iterator[Batch]:
-        idx = self._epoch_indices()
+        idx = epoch_order(self.indices, self.shuffle, self.seed, self._epoch)
         if self.drop_last:
             idx = idx[: len(self) * self.batch_size]
         batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
-        base_seed = (self.seed * 1_000_003 + self._epoch) % (2**31)
+        base_seed = epoch_base_seed(self.seed, self._epoch)
 
         def make_batch(bi: int, members: List[int]) -> Batch:
-            outs = [self.sampler.sample(index, np.random.default_rng(
-                [base_seed, bi * self.batch_size + j])) for j, index in enumerate(members)]
-            xs, ys, hcs, names, pads = zip(*outs)
-            return Batch(
-                wave_input=np.stack(xs)[:, None, :],
-                wave_target=np.stack(ys)[:, None, :],
-                highcut=np.asarray(hcs, np.int32),
-                names=list(names),
-                pad_lengths=np.asarray(pads, np.int32),
-            )
+            return build_batch(self.sampler, members, base_seed,
+                               range(bi * self.batch_size, bi * self.batch_size + len(members)))
 
         # At most num_workers + prefetch batches are submitted and not yet
         # handed over: one more is submitted as each is yielded, so a long
@@ -190,29 +213,59 @@ def train_valid_split(n: int, valid_split: float, seed: int = 42
     return list(perm[n_valid:]), list(perm[:n_valid])
 
 
+def process_rank() -> int:
+    """This process's rank in the initialised torch.distributed process
+    group, else 0."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank()
+    return 0
+
+
+def ensure_wav_tree(config, logger=None) -> str:
+    """The trimmed wav tree DATA_PATH/FLAC2WAV.DST_PATH, converted from
+    DATA_PATH/VCTK-Corpus-0.92/wav48_silence_trimmed when it is missing
+    (reference data_loaders.py:95-103). Rank 0 converts and then writes
+    ``<root>.converted``; the other ranks wait for that marker."""
+    root = f"{config.DATA.DATA_PATH.rstrip('/')}/{config.DATA.FLAC2WAV.DST_PATH}"
+    if os.path.isdir(root):
+        return root
+    flac_root = os.path.join(config.DATA.DATA_PATH, "VCTK-Corpus-0.92", "wav48_silence_trimmed")
+    if not os.path.isdir(flac_root):
+        return root  # VCTKDataset raises for the missing tree
+    from .vctk import convert_flac_corpus
+
+    done_marker = root.rstrip("/") + ".converted"
+    if process_rank() == 0:
+        if logger:
+            logger.info(f"Trimmed wav files not found; converting flac to wav "
+                        f"({flac_root} -> {root})")
+        convert_flac_corpus(flac_root, root, config.DATA.FLAC2WAV.TIMESTAMPS,
+                            mic_id=config.DATA.MIC_ID)
+        with open(done_marker, "w") as f:
+            f.write("ok\n")
+    else:
+        while not os.path.exists(done_marker):
+            time.sleep(5.0)
+    return root
+
+
 def get_loaders(config, logger=None, dataset=None):
     """Loader factory (reference data_loaders.py:25-79).
 
     Returns (train pipeline, valid pipeline) in training mode, or one test
-    pipeline in eval mode. ``dataset`` may be given (e.g. SyntheticVCTK);
-    otherwise it is the trimmed VCTK wav tree under DATA.DATA_PATH."""
+    pipeline in eval mode: ``DataPipeline`` (threads), or ``WorkerPipeline``
+    (worker processes) under DATA.PIPELINE grain. ``dataset`` may be given
+    (e.g. SyntheticVCTK); otherwise it is the trimmed VCTK wav tree under
+    DATA.DATA_PATH, converted from the raw FLAC corpus first if needed."""
     from .vctk import VCTKDataset
+    from .worker_pipeline import WorkerPipeline
 
-    if config.DATA.get("PIPELINE", "threads") == "grain":
-        raise NotImplementedError(
-            "DATA.PIPELINE grain is not ported yet (ROADMAP queue A: the grain → "
-            "DataLoader pipeline); use the default threads pipeline")
+    pipeline_cls = (WorkerPipeline if config.DATA.get("PIPELINE", "threads") == "grain"
+                    else DataPipeline)
     training = not config.EVAL_MODE
     if dataset is None:
-        root = f"{config.DATA.DATA_PATH.rstrip('/')}/{config.DATA.FLAC2WAV.DST_PATH}"
-        if not os.path.isdir(root):
-            raise FileNotFoundError(
-                f"trimmed VCTK wav tree not found at {root}; converting the FLAC corpus "
-                "is not ported yet (ROADMAP queue A: FLAC conversion and native/). "
-                "Convert it with the JAX package (python -m vm_asr_tpu.cli), or pass "
-                "--synthetic_data")
         dataset = VCTKDataset(
-            root,
+            ensure_wav_tree(config, logger),
             training=training,
             mic_id=config.DATA.MIC_ID,
             train_split=tuple(config.DATA.TRAIN_SPLIT),
@@ -225,8 +278,8 @@ def get_loaders(config, logger=None, dataset=None):
         tr_idx, va_idx = train_valid_split(len(dataset), config.DATA.VALID_SPLIT)
         common = dict(batch_size=config.DATA.BATCH_SIZE, seed=config.SEED,
                       num_workers=config.DATA.NUM_WORKERS)
-        train = DataPipeline(sampler, indices=tr_idx, shuffle=config.DATA.SHUFFLE, **common)
-        valid = DataPipeline(sampler, indices=va_idx, shuffle=False, **common)
+        train = pipeline_cls(sampler, indices=tr_idx, shuffle=config.DATA.SHUFFLE, **common)
+        valid = pipeline_cls(sampler, indices=va_idx, shuffle=False, **common)
         if logger:
             logger.info(f"Data: {len(tr_idx)} train / {len(va_idx)} valid samples")
         return train, valid
@@ -235,5 +288,5 @@ def get_loaders(config, logger=None, dataset=None):
     # (reference data_loaders.py:67-76, 455).
     input_sr = int(config.TAG.split("_")[0])
     sampler = DegradingSampler(dataset, config, training=False, input_sr=input_sr)
-    return DataPipeline(sampler, batch_size=1, shuffle=False, seed=config.SEED,
+    return pipeline_cls(sampler, batch_size=1, shuffle=False, seed=config.SEED,
                         num_workers=config.DATA.NUM_WORKERS, drop_last=False)

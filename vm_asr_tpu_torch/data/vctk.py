@@ -5,14 +5,15 @@ reference data_loader/data_loaders.py:82-520, CustomVCTK_092).
   config.py:31 and data_loaders.py:248-307);
 - the sample-id JSON cache and USE_QUANTITY subsampling
   (data_loaders.py:269-307);
-- silence trimming from the vctk-silence-labels timestamps
-  (data_loaders.py:151-246).
+- the FLAC-to-wav conversion with silence trimming from the
+  vctk-silence-labels timestamps (data_loaders.py:151-246):
+  ``convert_flac_corpus`` walks the raw VCTK 0.92 FLAC tree, decodes each
+  file with the host C++ FLAC decoder (``data/native.py``), trims it and
+  writes the 16-bit wav tree the dataset reads.
 
-The corpus must already be the trimmed wav tree. Converting the raw FLAC
-corpus needs the JAX package's C++ FLAC decoder (``native/``) and is not
-ported yet. ``SyntheticVCTK`` makes deterministic harmonic "speech" with the
-same interface, for tests and smoke runs; it gives the JAX package's samples
-bit for bit.
+``SyntheticVCTK`` makes deterministic harmonic "speech" with the same
+interface, for tests and smoke runs; it gives the JAX package's samples bit
+for bit.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import numpy as np
 
 from ..dsp.audio import load_wav, save_wav
 
-__all__ = ["Sample", "SyntheticVCTK", "VCTKDataset", "load_wav",
-           "parse_silence_labels", "save_wav", "trim_silence"]
+__all__ = ["EXCLUDED_SPEAKERS", "Sample", "SyntheticVCTK", "VCTKDataset", "convert_flac_corpus",
+           "load_wav", "parse_silence_labels", "save_wav", "trim_silence"]
 
 
 def parse_silence_labels(path: str) -> Dict[str, Tuple[float, float]]:
@@ -50,6 +51,51 @@ def trim_silence(
     start = max(0, int(bounds[0] * sr))
     end = min(audio.shape[-1], int(bounds[1] * sr))
     return audio[..., start:end]
+
+
+EXCLUDED_SPEAKERS = ("p280", "p315")  # reference data_loaders.py:193-195
+
+
+def convert_flac_corpus(
+    flac_root: str,
+    dst_root: str,
+    timestamps_path: Optional[str] = None,
+    mic_id: str = "mic1",
+    overwrite: bool = False,
+) -> int:
+    """Convert a raw VCTK 0.92 FLAC tree to the trimmed wav layout
+    (reference ``_flac2wav``, data_loaders.py:151-246).
+
+    Walks ``{flac_root}/{speaker}/{speaker}_{utt}_{mic}.flac``, skips
+    EXCLUDED_SPEAKERS, trims each utterance to its silence-label window and
+    writes ``{dst_root}/{speaker}/{speaker}_{utt}.wav`` (16-bit PCM). An
+    existing file is kept unless ``overwrite``. Each file is written under a
+    per-process temporary name and renamed into place, so a concurrent
+    converter sees either no file or the whole one. Returns the number of
+    files written."""
+    from .native import decode_flac
+
+    labels = parse_silence_labels(timestamps_path) if timestamps_path else {}
+    suffix = f"_{mic_id}.flac"
+    written = 0
+    for speaker in sorted(os.listdir(flac_root)):
+        sdir = os.path.join(flac_root, speaker)
+        if not os.path.isdir(sdir) or speaker in EXCLUDED_SPEAKERS:
+            continue
+        dst_dir = os.path.join(dst_root, speaker)
+        for fname in sorted(f for f in os.listdir(sdir) if f.endswith(suffix)):
+            utt = fname[: -len(suffix)]  # e.g. p225_001
+            dst = os.path.join(dst_dir, f"{utt}.wav")
+            if os.path.exists(dst) and not overwrite:
+                continue
+            audio, sr = decode_flac(os.path.join(sdir, fname))
+            mono = trim_silence(audio[0], sr, labels.get(utt))
+            os.makedirs(dst_dir, exist_ok=True)
+            tmp = f"{dst}.tmp{os.getpid()}"
+            save_wav(tmp, mono, sr)
+            os.replace(tmp, dst)
+            written += 1
+    return written
 
 
 @dataclass

@@ -1,8 +1,10 @@
-"""Host-side wav IO and resampling (numpy / scipy).
+"""Host-side wav IO and resampling.
 
 Ports of ``load_wav`` / ``save_wav`` (vm_asr_tpu/data/vctk.py:31-51) and
-``resample_audio`` (vm_asr_tpu/dsp/degrade.py:63-72, its scipy path; the JAX
-package's C++ resampler is bit-exact with it).
+``resample_audio`` (vm_asr_tpu/dsp/degrade.py:63-72): a 1-D waveform goes
+through the host C++ resampler (``data/native.py``), anything else through
+scipy. The C++ resampler is not bitwise scipy's: it agrees with it within
+1e-5 (tests/test_torch_native.py measures the difference).
 """
 
 from __future__ import annotations
@@ -37,7 +39,12 @@ def save_wav(path: str, audio: np.ndarray, sr: int) -> None:
 
 
 def resample_audio(waveform: np.ndarray, sr_org: int, sr_new: int) -> np.ndarray:
-    """Polyphase resampling (reference data_loaders.py:338-345, scipy path)."""
+    """Polyphase resampling (reference data_loaders.py:338-345): C++ for a
+    1-D waveform, scipy otherwise, as the JAX package chooses."""
+    if waveform.ndim == 1:
+        from ..data import native  # here: data/ imports this module
+
+        return native.resample_poly(waveform.astype(np.float32, copy=False), sr_new, sr_org)
     return resample_poly(waveform, sr_new, sr_org, axis=-1).astype(
         np.float32, copy=False
     )

@@ -1,10 +1,12 @@
 """Host-side audio degradation: low-pass filtering and polyphase resampling
-(port of vm_asr_tpu/dsp/degrade.py, its scipy path; reference
+(port of vm_asr_tpu/dsp/degrade.py; reference
 data_loader/data_loaders.py:309-347, 523-535, 538-566).
 
-These run in numpy/scipy on the pipeline's threads, so the data's randomness
-stays on the host. The JAX package's C++ filter and resampler
-(``native/``) are bit-exact with scipy and are not ported yet.
+These run on the host in the pipeline's threads or worker processes, so the
+data's randomness stays there. As in the JAX package, a 1-D signal is
+filtered (with at most 16 second-order sections) and resampled by the host
+C++ library (``data/native.py``), anything else by scipy; the C++ path
+agrees with scipy within 1e-5 (tests/test_torch_native.py).
 
 Reference quirk, kept: ``_get_io_pair`` (data_loaders.py:457-478) computes the
 low-passed signal and then resamples the *original* target, so the explicit
@@ -42,6 +44,13 @@ def lowpass(
         sos = ellip(order, 0.05, 20, wn, btype="lowpass", output="sos")
     else:
         raise ValueError(f"Unknown filter kind: {kind}")
+    if audio.ndim == 1 and sos.shape[0] <= 16:
+        from ..data import native  # here: data/ imports this module
+
+        try:
+            return native.sosfiltfilt(sos, audio.astype(np.float32, copy=False))
+        except ValueError:
+            pass  # too short for the padding: scipy raises its own error below
     return sosfiltfilt(sos, audio, axis=-1).astype(np.float32, copy=False)
 
 
