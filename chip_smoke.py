@@ -64,7 +64,23 @@ raising on failure:
    (the fused backward at D = 512) against the plain-fp64-scan witness; and
    a SINGLE generator step with and without USE_CHECKPOINT (gradients,
    launches and peak memory).
-11. raw corpus: write a VCTK-0.92-shaped FLAC tree (p225, p226, p227 and p280, which the
+11. stacked and adversarial options: the fused forward with two parameter
+   sets (the stream-stacked generator's one launch for both streams)
+   against its plain version at every stacked flagship shape (batch 1 and
+   the batch-8 bucket), bitwise on two calls and on a capped grid, and the
+   recurrence at the stacked rows; the stacked flagship generator
+   (MODEL.VSSM.STACKED_EXECUTION) in fp32 against the unstacked one, with
+   exactly 15 fused and 2 recurrence launches a forward and functorch's
+   per-stream-loop warning made an error; its batch-1 forward profiled
+   beside the unstacked one; the Inferencer on the three serve clips and
+   --eval, --inference and --throughput through the CLI, stacked, with
+   exact launch counts; then the flagship GAN step with the MSD, with the
+   period-stacked MPD (one group, and [[2,3],[5,7,11]]) and with wgan-gp,
+   beside the flagship MPD step: one fp32 step's losses against the MPD
+   step's from the same weights (5e-4 relative), then 3 warm-up and 10
+   timed bf16 steps with launch counts, peak memory and a profiled step
+   (the MPD step's timed again first, beside the train phase's).
+12. raw corpus: write a VCTK-0.92-shaped FLAC tree (p225, p226, p227 and p280, which the
    conversion skips; 12 utterances of 3 s each at 48 kHz, 16-bit) with the
    encoder of tests/flac_ref.py, decode every file bitwise back to its PCM,
    time DegradingSampler.sample with the C++ resampler against scipy at
@@ -74,7 +90,7 @@ raising on failure:
    get_loaders, DATA.PIPELINE grain, 4 workers, TRAIN_SPLIT [2,1], 5 steps,
    a validation batch, one step profiled, checkpoints) and runs --eval on
    the held-out speaker's converted clips, with exact launch counts.
-12. the kernels line, the card line, and the result line.
+13. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -91,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -101,7 +118,14 @@ from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
 from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK, native
 from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
-from vm_asr_tpu_torch.models import SS2D, get_discriminators, get_generator, set_scan_impl
+from vm_asr_tpu_torch.models import (
+    SS2D,
+    DualStreamStackedMambaUNet,
+    get_discriminators,
+    get_generator,
+    set_scan_impl,
+    to_stacked,
+)
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
 from vm_asr_tpu_torch.ops import (
     fused_chunk_states_plain,
@@ -530,9 +554,10 @@ def one_kernel(name, fn, kernels, wrapper, check, tries: int = 3) -> int:
     raise AssertionError(f"{name}: {tries} captures of one call held no device event")
 
 
-def check_lr(rows, l, d, gen):
+def check_lr(rows, l, d, gen, one_call: bool = True):
     """The forward kernel's h against the plain version, and a second call
-    and a call on a capped grid against the first, bit for bit."""
+    and a call on a capped grid against the first, bit for bit; with
+    ``one_call``, one call is one kernel on the device (one_kernel)."""
     a, b, ref, _ = lr_inputs(rows, l, d, gen, 1_000_003)
     h = linear_recurrence(a, b)
     runs = [(h,), (linear_recurrence(a, b),), (linear_recurrence_fwd(a, b, max_ctas=CAPPED_CTAS),)]
@@ -541,7 +566,7 @@ def check_lr(rows, l, d, gen):
     check_same(name, *runs)
     err = check_close(name, h, ref, FP32_TOL)
     empty = one_kernel(name, lambda: linear_recurrence(a, b), LR_KERNELS, linear_recurrence,
-                       lambda out: check_close(name, out, ref, FP32_TOL))
+                       lambda out: check_close(name, out, ref, FP32_TOL)) if one_call else None
     nbytes = 3 * rows * l * d * 4
     bms, by = bound_ms(nbytes, LR_OPS * rows * l * d)
     dev, passes = device_split(lambda: linear_recurrence(a, b), LR_KERNELS)
@@ -1554,6 +1579,431 @@ def gradient_check(cfg32, want, plain_to_witness: bool = True):
         loss_fp64=totals["plain64"], launches=counts["kernel"])
 
 
+# The stacked generator's scan calls a forward: one per pair of SS2Ds, at
+# (2B, L, K·D) with two parameter sets. (L, K·D) → calls.
+STACKED_FUSED_CALLS = {shape: n // 2 for shape, n in FUSED_CALLS.items()}
+STACKED_LR_CALLS = {shape: n // 2 for shape, n in LR_CALLS.items()}
+STACKED_FORWARD = dict(selective_scan_fused=15, selective_scan_fused_bwd=0, linear_recurrence=2,
+                       linear_recurrence_reverse=0)
+# functorch's warning when an op under vmap has no batching rule and runs
+# once per stream: the stacking would be silently undone.
+PER_STREAM_LOOP = "There is a performance drop"
+# A GAN option's first fp32 step against the flagship MPD step's from the
+# same weights, relative (the JAX package's bar, tests/test_stacked_mpd.py).
+OPTION_LOSS_REL = 5e-4
+# The flagship GAN step with each option on, TRAIN.ADVERSARIAL overrides,
+# and the metrics its first step shares with the MPD step's.
+SHARED = ("generator/multi_resolution_stft", "generator/features_mpd")
+MPD_TERMS = SHARED + ("generator/adversarial_mpd", "discriminator/mpd", "total_disc_loss",
+                      "total_loss")
+GAN_OPTIONS = {
+    "mpd + msd": ({"DISCRIMINATORS": ["mpd", "msd"]},
+                  SHARED + ("generator/adversarial_mpd", "discriminator/mpd")),
+    "stacked mpd, one group": ({"MPD_STACKED": True}, MPD_TERMS),
+    "stacked mpd, [[2,3],[5,7,11]]": ({"MPD_STACKED": True,
+                                       "MPD_STACK_GROUPS": [[2, 3], [5, 7, 11]]}, MPD_TERMS),
+    "wgan-gp": ({"GAN_LOSS_TYPE": "wgan-gp"}, SHARED),
+}
+
+
+def stacked_config(amp: bool, gan: bool = False, adversarial=None):
+    """The flagship config with MODEL.VSSM.STACKED_EXECUTION (and
+    TRAIN.ADVERSARIAL overrides)."""
+    c = flagship_config(amp, gan).defrost()
+    c.MODEL.VSSM.STACKED_EXECUTION = True
+    for key, value in (adversarial or {}).items():
+        c.TRAIN.ADVERSARIAL[key] = value
+    c.freeze()
+    return c
+
+
+def check_fused_groups(batch, l, kd, dtype, gen):
+    """The forward kernel over (2·batch, L, K·D) rows with two parameter
+    sets, rows 0..batch−1 reading the first and the rest the second, as the
+    stacked generator calls it: y and H0 against the plain version with the
+    same sets, and a second call and a call on a capped grid against the
+    first, bit for bit."""
+    (u, dts, bs, cs, a, bias, dsk, k), _ = fused_inputs(2 * batch, l, kd, dtype, gen)
+    a2, bias2, _ = init_ranges(kd, gen)
+    args = (u, dts, bs, cs, torch.stack([a, 0.5 * a2]), torch.stack([bias, bias2]),
+            torch.stack([dsk, -0.5 * dsk]), k)
+    y, h0, chunk = selective_scan_fused_fwd(*args)
+    runs = [(y, h0), selective_scan_fused_fwd(*args)[:2],
+            selective_scan_fused_fwd(*args, max_ctas=CAPPED_CTAS)[:2]]
+    torch.cuda.synchronize()
+    name = f"fused, two parameter sets, {(2 * batch, l, kd)} {dtype}"
+    check_same(name, *runs)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    err = check_close(name, y, selective_scan_fused_plain(*args), tol)
+    h0_err = check_close(f"{name} H0", h0, fused_chunk_states_plain(*args, chunk), FP32_TOL)
+    # The second set must be the one rows batch.. read: against one set alone.
+    one = selective_scan_fused_plain(*(t[batch:] for t in args[:4]), a2 * 0.5, bias2,
+                                     -0.5 * dsk, k)
+    check_close(f"{name} second set", y[batch:], one, tol)
+    size = u.element_size()
+    nbytes = (3 * 2 * batch * l * kd + 2 * 2 * batch * l * K) * size + 2 * 3 * kd * 4 \
+        + h0.numel() * 4
+    bms, by = bound_ms(nbytes, FUSED_OPS * 2 * batch * l * kd)
+    fn = lambda: selective_scan_fused_fwd(*args)  # noqa: E731
+    dev, _ = device_split(fn, FWD_KERNELS)
+    return dict(kernel="selective_scan_fused", sets=2, shape=[2 * batch, l, kd],
+                dtype=str(dtype), chunk=chunk, max_abs_err=err, tol=tol, h0_max_abs_err=h0_err,
+                bytes=nbytes, ms=cuda_ms(fn, reps=3, per=10), device_ms=dev,
+                plain_ms=cuda_ms(lambda: selective_scan_fused_plain(*args), reps=3, per=2),
+                bound_ms=bms, bound_by=by)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host ms to issue one call of ``fn`` (the host's clock until it
+    returns, the device idle and waited for before each call)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def serve_pair(models, fwd_of, rounds: int = 2):
+    """Wall (CUDA events), host ms to issue it, device busy ms, device
+    events and idle share of one batch-1 forward of each model, taken in
+    turns (a, b, b, a, ...)."""
+    out = {name: [] for name in models}
+    for r in range(rounds):
+        for name in (list(models) if r % 2 == 0 else list(models)[::-1]):
+            fwd = fwd_of(models[name])
+            wall = cuda_ms(fwd, reps=5, per=1)
+            issue = host_ms(fwd)
+            events = device_kernels(fwd)
+            busy = busy_us(events) / 1e3 if events else None
+            out[name].append(dict(wall_ms=wall, host_issue_ms=issue, device_busy_ms=busy,
+                                  device_events=len(events),
+                                  idle_share=None if busy is None else 1 - busy / wall))
+    return out
+
+
+def first_fp32_step(overrides):
+    """The metrics of one fp32 flagship GAN step (TF32 off) with
+    TRAIN.ADVERSARIAL ``overrides``, from the seeded weights and DropPath
+    draws every option shares."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = stacked_config(amp=False, gan=True, adversarial=overrides)
+    model, discs = get_generator(cfg, "cuda"), get_discriminators(cfg, "cuda")
+    states = (GenState(model, make_optimizer(cfg, 1000, model)),
+              {n: DiscState(d, make_optimizer(cfg, 1000, d)) for n, d in discs.items()})
+    batch = train_batch(cfg, seeds=range(30, 30 + TRAIN_BATCH))
+    metrics = make_train_step(cfg, model, discs)(
+        *states, batch, torch.Generator(device="cuda").manual_seed(cfg.SEED))[2]
+    out = {k: float(v) for k, v in metrics.items()}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def gan_option_step(label, overrides):
+    """The flagship GAN step (bf16, batch 4) with TRAIN.ADVERSARIAL
+    ``overrides``, as the train phase times the MPD step: 3 warm-up and 10
+    timed steps (CUDA events) with the scans' launches counted over the 10,
+    the peak memory, and one profiled step."""
+    cfg = stacked_config(amp=True, gan=True, adversarial=overrides)
+    model, discs = get_generator(cfg, "cuda"), get_discriminators(cfg, "cuda")
+    gen_state = GenState(model, make_optimizer(cfg, 1000, model))
+    disc_states = {n: DiscState(d, make_optimizer(cfg, 1000, d)) for n, d in discs.items()}
+    step = make_train_step(cfg, model, discs)
+    batches = [train_batch(cfg, seeds=range(30 + TRAIN_BATCH * i, 30 + TRAIN_BATCH * (i + 1)))
+               for i in range(4)]
+    rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
+    run = lambda i: step(gen_state, disc_states, batches[i % len(batches)], rng)  # noqa: E731
+    for i in range(3):
+        run(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    marks, history = [], []
+    for i in range(10):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        history.append(run(3 + i)[2])
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in marks]
+    finite = all(np.isfinite(float(v)) for m in history for v in m.values())
+    events = device_kernels(lambda: run(0))
+    busy = busy_us(events) / 1e3 if events else None
+    median_ms = statistics.median(step_ms)
+    return dict(option=label, overrides=overrides,
+                disc_types={n: type(d).__name__ for n, d in discs.items()}, median_ms=median_ms,
+                step_ms=step_ms, device_busy_ms=busy, device_events=len(events),
+                idle_share=None if busy is None else 1 - busy / median_ms, peak_memory_gb=peak_gb,
+                launches=launches, finite=finite,
+                last_metrics={k: float(v) for k, v in history[-1].items()})
+
+
+def stacked_phase(smi, cli_throughput, mpd_step):
+    """Stacked execution and the remaining adversarial options on the card
+    (phase 11 of the module docstring), beside the unstacked CLI throughput
+    and the train phase's flagship MPD step (``mpd_step``) of the same run.
+    Returns the report, with a summary of the stacked path's launches and
+    times for the kernels line."""
+    report = {}
+    gen = torch.Generator().manual_seed(1)
+    checks = []
+    for batch in (1, 8):
+        for (l, kd) in FUSED_CALLS:
+            for dtype in (torch.bfloat16, torch.float32):
+                checks.append(check_fused_groups(batch, l, kd, dtype, gen))
+        for (l, d) in LR_CALLS:  # the kernels phase showed one call to be one kernel
+            checks.append(check_lr(2 * batch, l, d, gen, one_call=False))
+    for c in checks:
+        extra = f"; H0 max|err| {c['h0_max_abs_err']:.3e}" if "h0_max_abs_err" in c else ""
+        print(f"{c['kernel']}{' (2 parameter sets)' if c.get('sets') else ''} "
+              f"{tuple(c['shape'])} {c['dtype'][6:]}: max|err| {c['max_abs_err']:.3e} (tol "
+              f"{c['tol']}){extra}; kernel {c['ms']:.4f} ms (device {fmt_ms(c['device_ms'])}), "
+              f"plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}); "
+              f"bitwise repeatable, also on {CAPPED_CTAS} CTAs  [{smi}]")
+    report["kernel_checks"] = checks
+
+    # The stacked flagship forward in fp32 against the unstacked one.
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg32 = stacked_config(amp=False)
+    model = get_generator(cfg32, "cuda")
+    stacked = to_stacked(cfg32, model)
+    if not isinstance(stacked, DualStreamStackedMambaUNet):
+        raise AssertionError(f"to_stacked gave {type(stacked).__name__}")
+    seg = int(cfg32.DATA.SEGMENT * cfg32.DATA.TARGET_SR)
+    x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=4)[None, None]).cuda()
+    hf = torch.tensor([171], device="cuda")
+    with torch.inference_mode(), warnings.catch_warnings():
+        warnings.filterwarnings("error", message=PER_STREAM_LOOP)
+        zero_counts()
+        y_st = stacked(x, hf)
+        torch.cuda.synchronize()
+        got = read_counts()
+        y_un = model(x, hf)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = ((y_st - y_un).abs().max() / y_un.abs().max()).item()
+    finite = bool(torch.isfinite(y_st).all())
+    print(f"stacked flagship forward, fp32 (TF32 off): max|stacked - unstacked| / "
+          f"max|unstacked| {rel:.3e} (tol {MODEL_REL_TOL}), finite {finite}; launches {got} "
+          f"(want {STACKED_FORWARD}; unstacked 30 + 4)  [{smi}]")
+    if not finite or not rel <= MODEL_REL_TOL or got != STACKED_FORWARD:
+        raise AssertionError("stacked forward check failed")
+    # bf16, the config's compute dtype: each model's distance from the fp32
+    # forward, the yardstick for the stacked-vs-unstacked gap in bf16 (the
+    # vmapped linears add their bias after rounding, grouped convs sum in
+    # another order).
+    cfg = stacked_config(amp=True)
+    model16 = get_generator(cfg, "cuda")
+    model16.load_state_dict(model.state_dict())
+    stacked16 = to_stacked(cfg, model16)
+    with torch.inference_mode():
+        y16 = {"unstacked": model16(x, hf), "stacked": stacked16(x, hf)}
+    bf16_gap = {k: ((v - y_un).abs().max() / y_un.abs().max()).item() for k, v in y16.items()}
+    bf16_gap["stacked vs unstacked"] = ((y16["stacked"] - y16["unstacked"]).abs().max()
+                                        / y16["unstacked"].abs().max()).item()
+    print(f"bf16 flagship forward, max|diff| / max|fp32 unstacked|: "
+          f"{ {k: f'{v:.3e}' for k, v in bf16_gap.items()} }  [{smi}]")
+    report["model_check"] = dict(rel_err=rel, tol=MODEL_REL_TOL, launches=got,
+                                 bf16_rel=bf16_gap)
+    del model, stacked, stacked16, y_st, y_un, y16
+
+    # Serve, bf16: the Inferencer with the stacked model and the unstacked one.
+    model = model16
+    servers = {"unstacked": Inferencer(cfg, model, output_dir=str(OUT / "results_unstacked"),
+                                       device="cuda"),
+               "stacked": Inferencer(cfg, to_stacked(cfg, model),
+                                     output_dir=str(OUT / "results_stacked"), device="cuda")}
+    clips = {"short_1.2s": 1.2, "one_segment_2.555s": 2.555, "long_7.5s": 7.5}
+    paths = {name: str(OUT / f"{name}.wav") for name in clips}  # written by the serve phase
+    seg = servers["stacked"].num_frames_per_seg
+
+    def serve(inf, name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inf.infer_file(paths[name], quiet=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    rows, served = [], Counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=PER_STREAM_LOOP)
+        for name, sec in clips.items():
+            cold = {k: serve(inf, name)[1] for k, inf in servers.items()}
+            n_in = int(round(sec * 48000))
+            n_pad = seg if n_in <= seg else -(-n_in // seg) * seg
+            n_seg = num_segments(n_pad, seg, cfg.INFERENCE.OVERLAP) if n_pad > seg else 1
+            n_fwd = sum(segment_bucket_counts(n_seg).values())
+            walls, outs = {k: [] for k in servers}, {}
+            for order in (("unstacked", "stacked"), ("stacked", "unstacked")):
+                for k in order:
+                    zero_counts()
+                    outs[k], wall = serve(servers[k], name)
+                    walls[k].append(wall)
+                    counts = read_counts()
+                    fused, lr = (15, 2) if k == "stacked" else (30, 4)
+                    if counts != dict(selective_scan_fused=fused * n_fwd,
+                                      selective_scan_fused_bwd=0, linear_recurrence=lr * n_fwd,
+                                      linear_recurrence_reverse=0):
+                        raise AssertionError(f"serve {name} ({k}): launches {counts}")
+                    if k == "stacked":
+                        served.update(counts)
+            diff = ((outs["stacked"] - outs["unstacked"]).abs().max()
+                    / outs["unstacked"].abs().max()).item()
+            r = dict(name=name, audio_s=sec, forwards=n_fwd, cold_wall_s=cold,
+                     wall_s={k: statistics.median(v) for k, v in walls.items()},
+                     rtf={k: statistics.median(v) / sec for k, v in walls.items()},
+                     rel_diff_bf16=diff, finite=bool(torch.isfinite(outs["stacked"]).all()))
+            print(f"serve {name}: RTF stacked {r['rtf']['stacked']:.4f}, unstacked "
+                  f"{r['rtf']['unstacked']:.4f} (host clock, synchronised, median of 2 in turns; "
+                  f"set-up {cold['stacked']:.3f} / {cold['unstacked']:.3f} s); {n_fwd} forward(s) "
+                  f"of 15 + 2 and 30 + 4 launches; bf16 outputs apart by {diff:.2e} of their "
+                  f"scale  [{smi}]")
+            if not r["finite"]:
+                raise AssertionError(f"serve {name}: stacked output not finite")
+            rows.append(r)
+    report["serve"] = rows
+
+    # Batch-1 forward, bf16: device events, busy and idle, in turns.
+    x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=2)[None, None]).cuda()
+    hf = torch.tensor([171], device="cuda")
+    prof = serve_pair({k: inf for k, inf in servers.items()},
+                      lambda inf: (lambda: inf.forward(x, hf)))
+    for k, runs in prof.items():
+        for p_ in runs:
+            idle = "not measured" if p_["idle_share"] is None else f"{p_['idle_share']:.3f}"
+            print(f"batch-1 forward, {k}: wall {p_['wall_ms']:.2f} ms (CUDA events), host "
+                  f"{p_['host_issue_ms']:.2f} ms to issue it, device busy "
+                  f"{fmt_ms(p_['device_busy_ms'])} in {p_['device_events']} device events, "
+                  f"idle share {idle}  [{smi}]")
+    report["profile"] = prof
+    del servers, model
+
+    # The CLI with the option on: --eval of the cli phase's best checkpoint,
+    # --inference of one clip, --throughput at batch 4.
+    work = OUT / "cli_stacked"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    run_dir = ROOT / "build" / "chip_smoke_cli" / "DualStreamInteractiveMambaUNet" / "chip"
+    on = ["MODEL.VSSM.STACKED_EXECUTION", "True", "TENSORBOARD.ENABLE", "False"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=PER_STREAM_LOOP)
+            zero_counts()
+            mode, tester = cli.run(["--cfg", str(CONFIG), "--eval", "--tag", "16000_48000",
+                                    "--resume", str(run_dir), "--synthetic_data", "--synthetic_n",
+                                    "4", "--opts", "TEST.RESULTS_DIR", str(work / "results"),
+                                    *on])
+            eval_counts = read_counts()
+            forwards = len(tester.rows) + 1 + 3 * 3 * tester_module.MEASURE_ITERS
+            want = dict(selective_scan_fused=15 * forwards, selective_scan_fused_bwd=0,
+                        linear_recurrence=2 * forwards, linear_recurrence_reverse=0)
+            for r in tester.rows:
+                print(f"stacked cli eval {r['name']}: rtf {r['rtf']:.4f}, rtf_compute "
+                      f"{r['rtf_compute']:.4f}, snr {r['snr']:.3f}, lsd {r['lsd']:.3f}  [{smi}]")
+            if mode != "eval" or not isinstance(tester.generator, DualStreamStackedMambaUNet) \
+                    or eval_counts != want or len(tester.rows) != 4 or \
+                    not all(np.isfinite([r["lsd"], r["snr"]]).all() for r in tester.rows):
+                raise AssertionError(f"stacked cli eval: launches {eval_counts} (want {want})")
+            eval_rows = tester.rows
+            del tester
+
+            clip = work / "clip_16k.wav"
+            save_wav(str(clip), speech_like(2.555, 16000, seed=51), 16000)
+            zero_counts()
+            mode, inferencer = cli.run(["--cfg", str(CONFIG), "--inference", "--tag",
+                                        "16000_48000", "--resume", str(run_dir), "--input",
+                                        str(clip), "--opts", "INFERENCE.RESULTS_DIR",
+                                        str(work / "inference"), *on])
+            infer_counts = read_counts()
+            wavs = sorted(p.name for p in (work / "inference").rglob("*.wav"))
+            if mode != "inference" or infer_counts != STACKED_FORWARD or not wavs or \
+                    not isinstance(inferencer.generator, DualStreamStackedMambaUNet):
+                raise AssertionError(f"stacked cli inference: launches {infer_counts}, {wavs}")
+            print(f"stacked cli inference: launches {infer_counts}, wrote {wavs}  [{smi}]")
+            del inferencer
+
+            zero_counts()
+            mode, stats = cli.run(["--cfg", str(CONFIG), "--throughput", "--batch_size", "4",
+                                   "--opts", "OUTPUT", str(work / "logs"), *on])
+            tp_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    calls = 1 + 2 + 3 * 3 * 10
+    print(f"stacked cli throughput: {stats['segments_per_second']:.2f} segments/s at batch "
+          f"{stats['batch']} ({stats['seconds_per_call'] * 1e3:.2f} ms a call, CUDA events); "
+          f"unstacked in the cli phase {cli_throughput:.2f}; launches {tp_counts}  [{smi}]")
+    if mode != "throughput" or tp_counts != dict(
+            selective_scan_fused=15 * calls, selective_scan_fused_bwd=0,
+            linear_recurrence=2 * calls, linear_recurrence_reverse=0):
+        raise AssertionError(f"stacked cli throughput: launches {tp_counts} for {calls} calls")
+    report["cli"] = dict(eval_rows=eval_rows, eval_launches=eval_counts,
+                         inference_launches=infer_counts, throughput=stats,
+                         throughput_launches=tp_counts, unstacked_throughput=cli_throughput)
+
+    # The GAN step with each remaining adversarial option, beside the train
+    # phase's MPD step: its first fp32 step's losses against the MPD step's
+    # from the same weights, then its bf16 timing.
+    base = first_fp32_step({})
+    per_step = dict(selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
+                    linear_recurrence_reverse=4)
+    rows = []
+    # The MPD step again first, timed here beside the options: host-clock
+    # step times drift over a run (PERF.md), device busy time does not.
+    for label, (overrides, keys) in {"mpd (flagship), again": ({}, ()),
+                                     **GAN_OPTIONS}.items():
+        first = first_fp32_step(overrides) if overrides else base
+        gaps = {k: abs(first[k] - base[k]) / abs(base[k]) for k in keys}
+        row = dict(gan_option_step(label, overrides), first_fp32_metrics=first,
+                   loss_rel_to_mpd_step=gaps)
+        idle = "not measured" if row["idle_share"] is None else f"{row['idle_share']:.3f}"
+        print(f"GAN step, {label} ({row['disc_types']}): {row['median_ms']:.2f} ms/step median "
+              f"(CUDA events, 10 steps after 3; the flagship MPD step {mpd_step['median_ms']:.2f} "
+              f"in the train phase, busy {fmt_ms(mpd_step['device_busy_ms'])}, peak "
+              f"{mpd_step['peak_memory_gb']:.2f} GB), device busy {fmt_ms(row['device_busy_ms'])} "
+              f"in {row['device_events']} events, idle share {idle}, peak memory "
+              f"{row['peak_memory_gb']:.2f} GB; launches {row['launches']} in 10 steps; first "
+              f"fp32 step's losses against the MPD step's: "
+              f"{ {k: f'{v:.2e}' for k, v in gaps.items()} } (bar {OPTION_LOSS_REL})  [{smi}]")
+        if not row["finite"] or any(not v <= OPTION_LOSS_REL for v in gaps.values()) or \
+                {k: v / 10 for k, v in row["launches"].items()} != per_step:
+            raise AssertionError(f"GAN option {label} failed: {row}")
+        rows.append(row)
+    report["gan_options"] = rows
+
+    def per_forward(name, calls, key):
+        """One stacked batch-1 forward's sum of ``key`` over its calls (bf16
+        fused forward, fp32 recurrence)."""
+        dtype = "torch.bfloat16" if name == "selective_scan_fused" else "torch.float32"
+        by = {tuple(c["shape"][1:]): c for c in checks if c["kernel"] == name
+              and c["shape"][0] == 2 and c["dtype"] == dtype}
+        vals = [by[s_][key] for s_ in calls]
+        return None if None in vals else sum(n * by[s_][key] for s_, n in calls.items())
+
+    summary = {name: dict(
+        stacked_serve_launches=served[name],
+        gan_option_launches={r["option"]: r["launches"][name] for r in rows},
+        stacked_forward_device_ms=per_forward(name, calls, "device_ms"),
+        stacked_forward_bound_ms=per_forward(name, calls, "bound_ms"),
+        stacked_max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == name))
+        for name, calls in (("selective_scan_fused", STACKED_FUSED_CALLS),
+                            ("linear_recurrence", STACKED_LR_CALLS))}
+    for name in ("selective_scan_fused_bwd", "linear_recurrence_reverse"):
+        summary[name] = dict(gan_option_launches={r["option"]: r["launches"][name]
+                                                  for r in rows})
+    for name, s_ in summary.items():
+        print(f"{name}, stacked path: {s_}")
+    report["summary"] = summary
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -1901,6 +2351,13 @@ def main() -> int:
     report["variants"], single_launches = variants_phase(smi)
     print(f"variants phase in {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("stacked and adversarial options: the stream-stacked generator (kernels with "
+               "parameter sets, serve, CLI) and the GAN step with the MSD, the stacked MPD "
+               "and wgan-gp")
+    report["stacked"] = stacked_phase(smi, report["cli"]["throughput"]["segments_per_second"],
+                                      report["train"])
+    print(f"stacked phase in {time.perf_counter() - t0:.1f} s")
+
     t0 = phase("raw corpus: host C++ library, FLAC decode, degradation, pipelines, then the "
                "flagship trained from a FLAC tree (DATA.PIPELINE grain) and --eval")
     report["raw_corpus"], raw_launches = raw_corpus_phase(smi)
@@ -1931,7 +2388,8 @@ def main() -> int:
                     library_ms=None, check="pass", cli_launches=cli_launches[name],
                     single_cli_launches=single_launches[name],
                     raw_corpus_launches=raw_launches[name],
-                    per="one batch-4 train step, summed over its calls", **extra)
+                    per="one batch-4 train step, summed over its calls",
+                    **report["stacked"]["summary"][name], **extra)
 
     bwd_step = per_train_step("selective_scan_fused_bwd", FUSED_CALLS, "torch.bfloat16")
     bwd_rows = [c for c in checks if c["kernel"] == "selective_scan_fused_bwd"

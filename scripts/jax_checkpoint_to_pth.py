@@ -10,8 +10,12 @@ every kind found this writes ``checkpoint-{kind}-{G,mpd}.pth`` into DIR
 (default RUN_DIR) in the layout of ``vm_asr_tpu_torch/core/checkpoint.py``:
 
 - ``state_dict``: the generator's params through
-  ``compat.flax_params_to_state_dict``; the MPD's params and spectral-norm
-  ``u``/``sigma`` through ``compat.flax_disc_variables_to_state_dict``;
+  ``compat.flax_params_to_state_dict``; each discriminator's (the MPD, the
+  MSD) params and spectral-norm ``u``/``sigma`` through
+  ``compat.flax_disc_variables_to_state_dict``, which unstacks a run
+  trained with MPD_STACKED (its ``group_g`` trees) by the port's own
+  ``unstack_mpd_state``: the port's ``.pth`` files keep the unstacked
+  layout with the option on or off;
 - ``optimizer``: torch AdamW state with optax's moments ``mu``/``nu`` as
   ``exp_avg``/``exp_avg_sq`` and its count as ``step``, and the update
   count;
@@ -24,8 +28,8 @@ run's generator checkpoint unless ``--cfg`` (and ``--opts``) are given.
 
 Needs JAX, flax, orbax (with tensorstore) and torch on one machine; the port
 itself imports none of JAX, so this script is the one bridge. Only runs
-with AdamW, no gradient accumulation and the MPD (as every shipped config
-trains) are converted; SGD, ACCUMULATION_STEPS > 1 and the MSD raise.
+with AdamW and no gradient accumulation (as every shipped config trains)
+are converted; SGD and ACCUMULATION_STEPS > 1 raise.
 """
 
 from __future__ import annotations
@@ -105,8 +109,6 @@ def jax_targets(config) -> Dict[str, object]:
     for name, disc in sorted(models.items()):
         if name == "generator":
             continue
-        if name != "mpd":
-            raise NotImplementedError(f"discriminator {name}: the port has only the MPD")
         dvars = zeros(jax.eval_shape(disc.init, rng, x, x))
         out[name] = JaxDiscState.create(dvars, jax_make_optimizer(config, 1))
     return out
@@ -128,10 +130,13 @@ def port_blob(tag: str, restored: dict, module: torch.nn.Module, port_config,
         weights = convert(state.params)
         wrap = GenState
     else:
+        adv = port_config.TRAIN.ADVERSARIAL  # the MPD's periods and groups, if stacked
+        stacking = dict(periods=tuple(adv.MPD_PERIODS), groups=adv.MPD_STACK_GROUPS or None)
+
         def convert(tree):
-            return flax_disc_variables_to_state_dict({"params": tree})
+            return flax_disc_variables_to_state_dict({"params": tree}, **stacking)
         weights = flax_disc_variables_to_state_dict(
-            {"params": state.params, "batch_stats": state.batch_stats})
+            {"params": state.params, "batch_stats": state.batch_stats}, **stacking)
         wrap = DiscState
     module.load_state_dict(weights, strict=True)
     optimizer = make_optimizer(port_config, 1, module)

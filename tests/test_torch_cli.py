@@ -141,11 +141,13 @@ def test_card_by_default(mode, tmp_path):
 
 
 def test_unported_options_refused(tmp_path):
-    """STACKED_EXECUTION is refused; DATA.PIPELINE grain, once refused,
-    trains on the worker-process pipeline."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["--cfg", CFG, "--throughput", "--device", "cpu", "--opts", *TINY,
-                  "OUTPUT", str(tmp_path), "MODEL.VSSM.STACKED_EXECUTION", "True"])
+    """The options once refused now run: STACKED_EXECUTION measures the
+    stacked model's throughput (tests/test_torch_stacked_cli.py holds its
+    --eval to the unstacked one); DATA.PIPELINE grain trains on the
+    worker-process pipeline."""
+    mode, stats = cli.run(["--cfg", CFG, "--throughput", "--device", "cpu", "--opts", *TINY,
+                           "OUTPUT", str(tmp_path), "MODEL.VSSM.STACKED_EXECUTION", "True"])
+    assert mode == "throughput" and stats["segments_per_second"] > 0
     mode, trainer = cli.run(_train_args(tmp_path, 1) + ["DATA.PIPELINE", "grain"])
     assert mode == "train" and isinstance(trainer.train_loader, WorkerPipeline)
     assert trainer.timings[0]["steps"] == 3 and trainer.gen_state.step == 3

@@ -112,5 +112,7 @@ def test_param_count_and_factory(mpd):
     assert sum(p.numel() for p in full.parameters()) == \
         sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shapes["params"]))
     c.TRAIN.ADVERSARIAL.DISCRIMINATORS = ["mpd", "msd"]
-    with pytest.raises(NotImplementedError):
-        get_discriminators(c, "cpu")
+    both = get_discriminators(c, "cpu")  # the MSD, once refused, is built beside the MPD
+    assert sorted(both) == ["mpd", "msd"]
+    assert all(torch.equal(a, b) for a, b in zip(both["mpd"].state_dict().values(),
+                                                  full.state_dict().values()))

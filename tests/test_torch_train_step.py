@@ -293,9 +293,13 @@ def test_drop_path_through_the_model(jax_run):
 
 
 def test_wgan_gp_step_is_not_ported_yet():
-    """The gradient penalty's discriminator step waits for a later slice: the
-    step refuses it rather than train without the penalty."""
+    """The gradient penalty's discriminator step, refused until it was
+    ported, now builds; its interpolation weights come from the step's
+    generator, one set per discriminator (the step itself is held to the
+    JAX package's in tests/test_torch_gan_options.py)."""
     cfg = _tiny(default_config())
     cfg.TRAIN.ADVERSARIAL.GAN_LOSS_TYPE = "wgan-gp"
-    with pytest.raises(NotImplementedError, match="wgan-gp"):
-        make_train_step(cfg, torch.nn.Identity(), {"mpd": torch.nn.Identity()})
+    drawn = []
+    step = make_train_step(cfg, torch.nn.Identity(), {"mpd": torch.nn.Identity()},
+                           gp_alpha=lambda rng, b, n: drawn.append((b, n)))
+    assert callable(step) and callable(step.gen_loss_fn) and drawn == []

@@ -33,6 +33,7 @@ from vm_asr_tpu_torch.models import (
     VSSBlock,
     generator_kwargs,
     get_generator,
+    to_stacked,
 )
 from vm_asr_tpu_torch.train import GenState, make_optimizer
 from tests.torch_native import jax_uses_port_native  # noqa: F401
@@ -144,13 +145,14 @@ def _vssm_keys_read(fn, config):
 
 
 def test_every_jax_option_is_read_and_tested():
-    """The port's generator_kwargs reads every MODEL.VSSM key the JAX
-    factory reads (its generator kwargs, get_model and to_stacked), and
-    OPTIONS sets each of them away from its default."""
+    """The port's generator_kwargs and to_stacked read every MODEL.VSSM key
+    the JAX factory reads (its generator kwargs, get_model and to_stacked),
+    and OPTIONS sets each of them away from its default."""
     c = _tiny(jax_default_config())
     jax_keys = _vssm_keys_read(jax_factory._generator_kwargs, c) | {
         "INTERACT", "PHASE_DECODER_FIX", "FUSE_STREAMS", "SCAN_FP32_IO", "STACKED_EXECUTION"}
-    port_keys = _vssm_keys_read(generator_kwargs, _tiny(default_config()))
+    port_keys = _vssm_keys_read(generator_kwargs, _tiny(default_config())) | \
+        _vssm_keys_read(lambda cfg: to_stacked(cfg, None), _tiny(default_config()))
     assert jax_keys <= port_keys, jax_keys - port_keys
     tested = {k for opts, _ in OPTIONS.values() for k in opts} | {"STACKED_EXECUTION",
                                                                    "PATCH_SIZE"}
@@ -177,9 +179,13 @@ def test_option_honoured(option):
 
 
 def test_stacked_execution_refused():
+    """STACKED_EXECUTION, once refused, is not a constructor option: the
+    factory builds the unstacked model (which trains) and to_stacked gives
+    its stacked twin for serving (tests/test_torch_stacked_model.py)."""
     c, _ = _configs({"STACKED_EXECUTION": True})
-    with pytest.raises(NotImplementedError, match="STACKED_EXECUTION.*ROADMAP"):
-        generator_kwargs(c)
+    assert generator_kwargs(c) == generator_kwargs(_configs({})[0])
+    model = get_generator(c, "cpu")
+    assert type(to_stacked(c, model)).__name__ == "DualStreamStackedMambaUNet"
 
 
 def test_patch_size_refused():

@@ -79,6 +79,18 @@ def load_generator_weights(config, generator, logger) -> None:
                    f"{config.SEED}")
 
 
+def _maybe_stack(config, generator, logger):
+    """The stream-stacked execution model for --eval, --inference and
+    --throughput when MODEL.VSSM.STACKED_EXECUTION is set (identical
+    outputs, each op once for both streams), else ``generator``."""
+    from .models import to_stacked
+
+    stacked = to_stacked(config, generator)
+    if stacked is not generator:
+        logger.info("Stacked dual-stream execution enabled (MODEL.VSSM.STACKED_EXECUTION)")
+    return stacked
+
+
 def run(argv=None):
     """Parse ``argv`` and run its mode; returns (mode, result): the Trainer
     after training, the Tester after ``--eval``, the Inferencer after
@@ -129,6 +141,7 @@ def run(argv=None):
         bsz = config.DATA.BATCH_SIZE
         x = torch.zeros((bsz, 1, seg), dtype=torch.float32, device=device)
         hf = torch.full((bsz,), 171, dtype=torch.int64, device=device)
+        generator = _maybe_stack(config, generator, logger)
         stats = benchmark(make_forward_fn(generator), x, hf, iters=10,
                           chain=lambda out, v, h: (v + 1e-6 * out, h))
         segs_per_sec = bsz / stats["seconds_per_call"]
@@ -142,6 +155,7 @@ def run(argv=None):
         from .train.inferencer import Inferencer
 
         load_generator_weights(config, generator, logger)
+        generator = _maybe_stack(config, generator, logger)
         inferencer = Inferencer(config, generator, logger, device=device)
         if os.path.isdir(args.input):
             inferencer.infer_directory(args.input)
@@ -154,6 +168,7 @@ def run(argv=None):
 
         loader = get_loaders(config, logger, dataset=dataset)
         load_generator_weights(config, generator, logger)
+        generator = _maybe_stack(config, generator, logger)
         target_sr, input_sr = config.TAG.split("_")[1], config.TAG.split("_")[0]
         out_dir = os.path.join(config.TEST.RESULTS_DIR, config.MODEL.NAME, target_sr, input_sr)
         tester = Tester(config, generator, loader, logger, output_dir=out_dir, device=device)

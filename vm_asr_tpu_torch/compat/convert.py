@@ -125,38 +125,58 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def flax_disc_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax ``MultiPeriodDiscriminator`` variables tree ({"params",
-    "batch_stats"}) → the port's ``state_dict``:
+def flax_disc_variables_to_state_dict(variables: Mapping, periods=None,
+                                      groups=None) -> Dict[str, torch.Tensor]:
+    """A flax discriminator's variables tree ({"params", "batch_stats"}) →
+    the port's ``state_dict``, for the MultiPeriodDiscriminator, the
+    MultiScaleDiscriminator and the StackedMultiPeriodDiscriminator:
 
-        params/disc_i/conv_j/kernel (kh, kw, I, O) → discriminators.i.convs.j.weight (O, I, kh, kw)
-        params/disc_i/conv_j/bias                 → discriminators.i.convs.j.bias
+        params/disc_i/conv_j/kernel (kh, kw, I, O) or (k, I/g, O)
+            → discriminators.i.convs.j.weight (O, I, kh, kw) or (O, I/g, k)
+        params/disc_i/conv_j/bias → discriminators.i.convs.j.bias
         batch_stats/disc_i/SpectralNorm_m/"conv_j/kernel/u" (1, O) → ….convs.j.u
         batch_stats/disc_i/SpectralNorm_m/"conv_j/kernel/sigma" () → ….convs.j.sigma
 
-    and the same for ``conv_post``."""
+    and the same for ``conv_post``. A stacked MPD's ``group_g`` subtrees
+    (every leaf with a leading lane axis) are unstacked with
+    ``models.discriminator.unstack_mpd_state`` over ``periods`` and
+    ``groups`` (MPD_PERIODS, MPD_STACK_GROUPS), so the result is always the
+    unstacked layout that the port's modules and ``.pth`` files keep."""
 
     def layer(disc: str, conv: str) -> str:
-        i = re.fullmatch(r"disc_(\d+)", disc)
+        i = re.fullmatch(r"(disc|group)_(\d+)", disc)
         j = re.fullmatch(r"conv_(\d+)", conv)
         if i is None or (j is None and conv != "conv_post"):
-            raise KeyError(f"unknown MPD layer {disc}/{conv}")
-        return f"discriminators.{i.group(1)}." + (f"convs.{j.group(1)}" if j else "conv_post")
+            raise KeyError(f"unknown discriminator layer {disc}/{conv}")
+        root = f"discriminators.{i.group(2)}" if i.group(1) == "disc" else f"group_{i.group(2)}"
+        return f"{root}." + (f"convs.{j.group(1)}" if j else "conv_post")
 
-    out: Dict[str, torch.Tensor] = {}
+    def weight(disc: str, kernel: np.ndarray) -> np.ndarray:
+        """flax (*k, I, O) → torch (O, I, *k), after a stacked lane axis."""
+        lead = 1 if disc.startswith("group_") else 0
+        spatial = tuple(range(lead, kernel.ndim - 2))
+        return kernel.transpose(tuple(range(lead)) + (kernel.ndim - 1, kernel.ndim - 2) + spatial)
+
+    out: Dict[str, np.ndarray] = {}
     for path, value in _flatten(variables["params"]):
         disc, conv, leaf = path
         name = "weight" if leaf == "kernel" else leaf
-        out[f"{layer(disc, conv)}.{name}"] = value.transpose(3, 2, 0, 1) if leaf == "kernel" \
-            else value
+        out[f"{layer(disc, conv)}.{name}"] = weight(disc, value) if leaf == "kernel" else value
     for path, value in _flatten(variables.get("batch_stats", {})):
         disc, _sn, key = path
         conv, kernel, leaf = key.split("/")
         if kernel != "kernel" or leaf not in ("u", "sigma"):
-            raise KeyError(f"unknown MPD statistic {'/'.join(path)}")
+            raise KeyError(f"unknown discriminator statistic {'/'.join(path)}")
         out[f"{layer(disc, conv)}.{leaf}"] = value
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in out.items()}
+    state = {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+             for k, v in out.items()}
+    if any(k.startswith("group_") for k in state):
+        if periods is None:
+            raise ValueError("a stacked MPD's variables need its periods (and groups)")
+        from ..models.discriminator import unstack_mpd_state
+
+        state = {k: v.clone() for k, v in unstack_mpd_state(state, periods, groups).items()}
+    return state
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:

@@ -3,7 +3,7 @@ vm_asr_tpu/core/checkpoint.py; reference base/base_trainer.py:130-179 and
 utils/utils.py:112-178).
 
 Each checkpoint is one torch file in the reference's layout,
-``checkpoint-{latest,best,epoch-N}-{G|mpd}.pth``, holding
+``checkpoint-{latest,best,epoch-N}-{G|mpd|msd}.pth``, holding
 ``{state_dict, optimizer, step, epoch, monitor_best, config}``: the module's
 weights under the reference's names, the optimizer with its schedule
 position and accumulation buffer (``train.optim.Optimizer.state_dict``), and

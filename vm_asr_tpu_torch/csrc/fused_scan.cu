@@ -10,6 +10,13 @@
 // backward (fused_scan_bwd.cu) rebuilds h. u, dts, B, C and y are all bf16 or
 // all fp32; A, bias, Dskip are fp32 and the maths is fp32.
 //
+// Parameter groups: A, bias and Dskip may hold S sets of KD values, one per
+// run of B / S consecutive rows, so that one launch serves S streams with
+// their own parameters (the stream-stacked generator folds its streams
+// into the rows; the TPU kernel gets the same from pallas_call's batching
+// rule under the JAX package's nn.vmap). Row b reads set b / group_rows;
+// S = 1 (group_rows = B) is the plain call, bit for bit.
+//
 // What bounds it: bytes. It must read u and dts and write y, 6 bytes per
 // element in bf16 (12 in fp32), plus B, C and H0, against ~15 fp32
 // operations per element, far below the card's 20 operations per byte.
@@ -114,6 +121,7 @@ struct FwdArgs {
   void* y;
   float* H0;  // (B, n_chunks, KD)
   int B, L, KD, K, chunk, n_chunks;
+  int group_rows;  // rows per parameter set: row b reads A, bias, Dskip at (b / group_rows) * KD
 };
 
 // The geometry: G channels per group, C chunks per L-tile, each chunk split
@@ -352,9 +360,10 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
 
     const int q = at.c0 + g;
     const int k = q / D;
-    const float a2_q = args.A[q] * kLog2e;
-    const float bias_q = args.bias[q];
-    const float d_q = args.dskip[q];
+    const size_t pq = at.b / args.group_rows * args.KD + q;  // this row's parameter set
+    const float a2_q = args.A[pq] * kLog2e;
+    const float bias_q = args.bias[pq];
+    const float d_q = args.dskip[pq];
     const int t_tile = at.jt * tile.C * args.chunk;
     const int ci = at.jt * tile.C + seg / tile.splits;  // this thread's chunk
     const int t_seg = ci * args.chunk + (seg % tile.splits) * tile.n_sub * kSteps;
@@ -432,7 +441,8 @@ int launch(const FwdArgs& args, const FwdTile& tile, LookBack lb, int threads, i
 }  // namespace vmasr
 
 // u, dts, y: (B, L, KD); bs, cs: (B, L, K); all in the IO dtype (bf16 != 0:
-// bf16, else fp32). A, bias, dskip: (KD,) fp32. H0: (B, n_chunks, KD) fp32,
+// bf16, else fp32). A, bias, dskip: (B / group_rows, KD) fp32, row b reading
+// set b / group_rows (group_rows = B: one set, (KD,)). H0: (B, n_chunks, KD) fp32,
 // n_chunks = ceil(L / chunk), receives the state entering each chunk. work:
 // work_bytes of device memory that the caller keeps across calls, at least
 // 24 * slots * tile_channels bytes for slots = B * (KD / tile_channels) *
@@ -449,11 +459,13 @@ extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* 
                                     const void* cs, const float* A, const float* bias,
                                     const float* dskip, void* y, float* H0, void* work,
                                     long long work_bytes, unsigned epoch, int B, int L, int KD,
-                                    int K, int chunk, int bf16, int tile_channels,
+                                    int K, int chunk, int group_rows, int bf16,
+                                    int tile_channels,
                                     int tile_chunks, int tile_splits, int tile_threads,
                                     int tile_window, int tile_smem, int max_ctas, void* stream) {
   using namespace vmasr;
-  if (B <= 0 || L <= 0 || K <= 0 || KD % K != 0 || chunk <= 0 || chunk > kMaxChunk)
+  if (B <= 0 || L <= 0 || K <= 0 || KD % K != 0 || chunk <= 0 || chunk > kMaxChunk ||
+      group_rows <= 0 || B % group_rows != 0)
     return (int)cudaErrorInvalidValue;
   const int G = tile_channels, C = tile_chunks, sp = tile_splits;
   if (G <= 0 || KD % G != 0 || C <= 0 || sp <= 0 || chunk % (sp * kSteps) != 0 ||
@@ -473,7 +485,8 @@ extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* 
                    (KD * item) % 16 == 0 && aligned(u, 16) && aligned(dts, 16) &&
                    aligned(y, 16) && aligned(bs, 4 * item) && aligned(cs, 4 * item);
   FwdTile tile{G, C, sp, chunk / (sp * kSteps), KD / G, n_tiles, vec};
-  FwdArgs args{u, dts, bs, cs, A, bias, dskip, y, H0, B, L, KD, K, chunk, n_chunks};
+  FwdArgs args{u, dts, bs, cs, A, bias, dskip, y, H0, B, L, KD, K, chunk, n_chunks,
+               group_rows};
   const LookBack lb = make_lookback(work, slots, G, epoch, tile_window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 32 && K == 4) {

@@ -8,9 +8,18 @@ from typing import Any, Dict, Union
 import torch
 
 from ..core.device import resolve_device
-from .discriminator import MultiPeriodDiscriminator
+from .discriminator import (
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+    StackedMultiPeriodDiscriminator,
+)
 from .layers import init_parameters
-from .unet import DualStreamInteractiveMambaUNet, MambaUNet
+from .unet import (
+    DualStreamInteractiveMambaUNet,
+    DualStreamStackedMambaUNet,
+    MambaUNet,
+    stack_dual_state,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -22,16 +31,12 @@ _MAMBA_UNET_NAMES = ("MambaUNet", "VM_ASR_BASIC")
 def generator_kwargs(config) -> Dict[str, Any]:
     """Constructor arguments of the generator named by ``config``: every
     MODEL.VSSM option the JAX factory passes (vm_asr_tpu/models/factory.py:
-    25-58, 79-88), or an error for the one the port does not have yet
-    (STACKED_EXECUTION)."""
+    25-58, 79-88). STACKED_EXECUTION is not one: it swaps the trained model
+    for its stacked twin at serving time (``to_stacked``)."""
     v = config.MODEL.VSSM
     name = config.MODEL.NAME
     if name not in ("DualStreamInteractiveMambaUNet",) + _MAMBA_UNET_NAMES:
         raise ValueError(f"Unknown model name: {name}")
-    if bool(v.get("STACKED_EXECUTION", False)):
-        raise NotImplementedError(
-            "MODEL.VSSM.STACKED_EXECUTION is not ported yet (ROADMAP queue A, item 7: "
-            "stacked execution)")
     compute = _DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32
     kwargs = dict(
         in_chans=v.IN_CHANS,
@@ -91,31 +96,68 @@ def get_generator(config, device="cuda", seed=None
     return model.to(dev).eval()
 
 
+def to_stacked(config, generator: torch.nn.Module) -> torch.nn.Module:
+    """Serving path: the stream-stacked execution model
+    (``DualStreamStackedMambaUNet``: each op once for both streams, identical
+    outputs) with ``generator``'s weights, in eval mode on its device; the
+    JAX package's ``to_stacked`` (vm_asr_tpu/models/factory.py:128-155).
+    Returns ``generator`` itself unless the config sets
+    MODEL.VSSM.STACKED_EXECUTION, the model is the dual-stream U-Net and
+    ``interact`` is not "single" (or when it is stacked already). Training
+    keeps the unstacked model, as the JAX Trainer does; checkpoints stay in
+    its layout."""
+    v = config.MODEL.VSSM
+    if not bool(v.get("STACKED_EXECUTION", False)) or \
+            config.MODEL.NAME != "DualStreamInteractiveMambaUNet" or v.INTERACT == "single" \
+            or not isinstance(generator, DualStreamInteractiveMambaUNet):
+        return generator
+    kwargs = generator_kwargs(config)
+    kwargs.pop("fuse_streams")  # stacking runs every stage once for both streams anyway
+    with torch.device("meta"):
+        stacked = DualStreamStackedMambaUNet(**kwargs)
+    dims, depths = v.DIMS, list(v.DEPTHS)
+    state = stack_dual_state(
+        generator.state_dict(), concat_skip=bool(v.CONCAT_SKIP),
+        has_latent=not isinstance(dims, int) and len(dims) == len(depths) + 1,
+        phase_decoder_fix=bool(v.get("PHASE_DECODER_FIX", False)))
+    stacked.load_state_dict(state, assign=True)
+    return stacked.requires_grad_(False).eval()
+
+
 def get_discriminators(config, device="cuda", seed=None) -> Dict[str, torch.nn.Module]:
-    """{"mpd": MultiPeriodDiscriminator} when the config trains adversarially
-    with the MPD, else {}; initialised from a ``torch.Generator`` seeded with
-    ``seed`` (default ``config.SEED + 1``, apart from the generator's draws)
-    and placed on ``device`` (default the card). The MSD and the stacked MPD
-    are not ported and raise."""
+    """The discriminators of TRAIN.ADVERSARIAL.DISCRIMINATORS when the config
+    trains adversarially, else {}: "mpd" (the StackedMultiPeriodDiscriminator
+    with MPD_STACKED, its periods grouped by MPD_STACK_GROUPS) and "msd"
+    (MSD_HIDDEN), as the JAX factory builds them
+    (vm_asr_tpu/models/factory.py:95-125). Initialised in name order from one
+    ``torch.Generator`` seeded with ``seed`` (default ``config.SEED + 1``,
+    apart from the generator's draws) and placed on ``device`` (default the
+    card)."""
     dev = resolve_device(device)
     adv = config.TRAIN.ADVERSARIAL
     if not adv.ENABLE:
         return {}
-    unported = [n for n in adv.DISCRIMINATORS if n not in ("mpd", "")]
-    if unported or bool(adv.get("MPD_STACKED", False)):
-        raise NotImplementedError(
-            f"discriminators {unported or 'MPD_STACKED'}: only the unstacked MPD is ported"
-        )
-    if "mpd" not in adv.DISCRIMINATORS:
-        return {}
+    unknown = [n for n in adv.DISCRIMINATORS if n not in ("mpd", "msd", "")]
+    if unknown:
+        raise ValueError(f"unknown discriminators {unknown}")
     compute = _DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32
-    mpd = MultiPeriodDiscriminator(
-        hidden=adv.MPD_HIDDEN, periods=tuple(adv.get("MPD_PERIODS", [2, 3, 5, 7, 11])),
-        compute_dtype=compute,
-    )
+    models: Dict[str, torch.nn.Module] = {}
+    if "mpd" in adv.DISCRIMINATORS:
+        periods = tuple(adv.get("MPD_PERIODS", [2, 3, 5, 7, 11]))
+        if bool(adv.get("MPD_STACKED", False)):
+            models["mpd"] = StackedMultiPeriodDiscriminator(
+                hidden=adv.MPD_HIDDEN, periods=periods,
+                groups=adv.get("MPD_STACK_GROUPS", []) or None, compute_dtype=compute)
+        else:
+            models["mpd"] = MultiPeriodDiscriminator(hidden=adv.MPD_HIDDEN, periods=periods,
+                                                     compute_dtype=compute)
+    if "msd" in adv.DISCRIMINATORS:
+        models["msd"] = MultiScaleDiscriminator(hidden=adv.get("MSD_HIDDEN", 128),
+                                                compute_dtype=compute)
     gen = torch.Generator().manual_seed(int(config.SEED + 1 if seed is None else seed))
-    init_parameters(mpd, gen)
-    return {"mpd": mpd.to(dev)}
+    for name in sorted(models):
+        init_parameters(models[name], gen)
+    return {name: m.to(dev) for name, m in models.items()}
 
 
 def set_scan_impl(model: torch.nn.Module, impl: str) -> None:

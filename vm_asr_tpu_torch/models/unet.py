@@ -23,7 +23,10 @@ Kept from the reference, as the JAX package keeps them:
   "single" builds no phase stream and passes the phase through.
 - LOW_FREQ_REPLACEMENT in "torch" mode is a no-op on (B, 1, T) input.
 
-Not ported yet: stacked execution (``DualStreamStackedMambaUNet``).
+Stacked execution (``DualStreamStackedMambaUNet``, serving only): the two
+streams run as one (2, B, ...) tensor through ``torch.func.vmap`` over one
+stream's stage modules with their weights stacked on a leading axis of 2
+(``stack_dual_state``), each op once for both streams.
 
 Module names are the reference's (``patch_embed_mag``,
 ``layers_encoder_mag``, ``layers_latent_mag``, ``layers_decoder_mag``,
@@ -33,12 +36,13 @@ its ``state_dict`` keys are too.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call, vmap
 
 from ..dsp import spectro2wav, wav2spectro
 from .layers import Conv1x1, ConvTranspose2d, PatchEmbed
@@ -468,3 +472,141 @@ class DualStreamInteractiveMambaUNet(SpectralUNet):
 
         wav = self._i_mag_phase(mag, phase)[..., :length]
         return wav[:, None, :] if chan else wav
+
+
+# ---------------------------------------------------------------------------
+# Stacked dual-stream execution (JAX package: models/unet.py:618-778)
+#
+# The dual-stream model runs two same-architecture streams with different
+# weights, so one forward launches every op twice, each small; on the card
+# the host's launches set the batch-1 forward's wall. Here the two streams
+# run as one (2, B, ...) tensor through torch.func.vmap over ONE stream's
+# stage modules, whose parameters carry a leading stream axis of 2: each op
+# runs once for both streams at identical per-sample maths. The scans'
+# batching rules fold the stream axis into the kernels' rows with per-stream
+# parameters (ops/selective_scan_fused.py), so each SS2D keeps its own
+# routing: stacking the streams on the channel axis instead would double
+# K·D and move the narrow heads across the fused kernel's K·D >= 128 gate.
+# The scans' rules launch the forward only: the stacked model serves.
+
+
+class DualStreamStackedMambaUNet(SpectralUNet):
+    """Execution-equivalent re-layout of DualStreamInteractiveMambaUNet for
+    serving: the magnitude and phase streams run as one stacked (2, B, ...)
+    tensor through stream-vmapped stages (embed, encode(i), run_latent,
+    decode(i), output) whose parameters have a leading stream axis of 2.
+
+    Its weights come from the unstacked model: ``stack_dual_state`` (or
+    ``models.factory.to_stacked``); the reference's phase-through-mag-decoder
+    quirk (model.py:1148, PHASE_DECODER_FIX False) is encoded there by
+    stacking those decoder stages as [mag, mag]. Module names are one
+    stream's without a suffix (``layers_encoder.0...``), as the JAX model's
+    ``core``. The parameters need no gradient: the model serves only, in
+    eval mode, and a scan under vmap that would need a gradient raises."""
+
+    INTERACTIONS = ("dual", "p2m", "m2p")
+
+    def __init__(self, interact: str = "dual", phase_decoder_fix: bool = False,
+                 concat_skip: bool = True, **kwargs):
+        spectral, stream_kwargs = _split_kwargs(kwargs)
+        super().__init__(**spectral)
+        if interact == "single":
+            raise ValueError("interact='single' has one stream: use MambaUNet or "
+                             "DualStreamInteractiveMambaUNet")
+        if interact not in self.INTERACTIONS:
+            raise ValueError(f"interact must be one of {self.INTERACTIONS}, got {interact!r}")
+        self.interact = interact
+        self.phase_decoder_fix = phase_decoder_fix
+        self.concat_skip = concat_skip
+        self.core = self._register_stream(
+            build_stream(concat_skip=concat_skip, compute_dtype=self.compute_dtype,
+                         **stream_kwargs), "", concat_skip)
+        self.num_layers = len(self.core.layers_encoder)
+        for module in self.modules():  # one stream's weights → both streams', (2, ...)
+            for name, p in list(module.named_parameters(recurse=False)):
+                setattr(module, name, nn.Parameter(p.new_zeros((2, *p.shape)),
+                                                   requires_grad=False))
+
+    def _stage(self, module: nn.Module, s: torch.Tensor) -> torch.Tensor:
+        """``module`` run once over the stream axis of ``s`` (2, B, ...),
+        stream i with slice i of its stacked parameters."""
+        params = dict(module.named_parameters())
+        return vmap(lambda p, x: functional_call(module, p, (x,)))(params, s)
+
+    def _interact_stacked(self, s):
+        m, p = s[0], s[1]
+        if self.interact == "dual":
+            # Sequential adds: the second uses the updated mag (model.py:1174-1176).
+            m = m + p
+            p = p + m
+        elif self.interact == "p2m":
+            m = m + p
+        elif self.interact == "m2p":
+            p = p + m
+        return torch.stack([m, p])
+
+    def forward(self, x: torch.Tensor, hf: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, T) or (B, 1, T) waveform; hf: (B,) highcut bin indices. Eval
+        mode only."""
+        if self.training:
+            raise RuntimeError("the stacked model serves only: call .eval() (train the "
+                               "unstacked DualStreamInteractiveMambaUNet)")
+        chan = x.dim() == 3
+        if chan:
+            x = x[:, 0, :]
+        length = x.shape[-1]
+        core, n = self.core, self.num_layers
+        mag, phase = self._mag_phase(x)
+        mag_dc, phase_dc = mag[:, :1], phase[:, :1]
+        mag, phase = mag[:, 1:], phase[:, 1:]
+        residual_mag = mag  # no normalisation (model.py:1113-1116)
+
+        s = self._stage(core.patch_embed,
+                        torch.stack([mag, phase])[..., None].to(self.compute_dtype))
+        skips = [s]
+        for i in range(n):
+            s = self._stage(core.layers_encoder[i], s)
+            if core.has_latent or i < n - 1:
+                skips.append(s)
+            s = self._interact_stacked(s)
+        if core.has_latent:
+            # The bottleneck: no interaction (model.py:1133-1139).
+            s = self._stage(core.layers_latent[0], s)
+        for i in range(n):
+            if core.has_latent or i != 0:
+                s = core.join(s, skips.pop())
+            s = self._interact_stacked(self._stage(core.layers_decoder[i], s))
+        s = self._stage(core.output_layer, core.join(s, skips.pop()))
+
+        mag = torch.cat([mag_dc, s[0, ..., 0].float() + residual_mag], dim=-2)
+        phase = torch.cat([phase_dc, s[1, ..., 0].float()], dim=-2)
+        mag, phase = self._apply_lfr(mag, phase, x, hf, chan)
+        wav = self._i_mag_phase(mag, phase)[..., :length]
+        return wav[:, None, :] if chan else wav
+
+
+def stack_dual_state(state: Dict[str, torch.Tensor], *, concat_skip: bool = True,
+                     has_latent: bool = False, phase_decoder_fix: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """A DualStreamInteractiveMambaUNet ``state_dict`` (``*_mag``/``*_phase``
+    names) → the DualStreamStackedMambaUNet's (one stream's names, every
+    tensor stacked [mag, phase] on a new leading axis): the JAX package's
+    ``stack_dual_params`` (models/unet.py:746-778).
+
+    The selection rules mirror the unstacked orchestration: decoder stages
+    where the reference routes BOTH streams through the mag decoder
+    (concat-skip stages past the standard layout's pass-through stage 0,
+    model.py:1148, unless ``phase_decoder_fix``) stack as [mag, mag];
+    everything else as [mag, phase]. The phase stream's tensors with no mag
+    counterpart do not exist (the model builds no phase decoders there)."""
+    out = {}
+    for key, mag in state.items():
+        head, _, rest = key.partition(".")
+        if not head.endswith("_mag"):
+            continue
+        base = head[:-len("_mag")]
+        quirk = False
+        if base == "layers_decoder" and concat_skip and not phase_decoder_fix:
+            quirk = has_latent or int(rest.split(".", 1)[0]) != 0
+        out[f"{base}.{rest}"] = torch.stack([mag, mag if quirk else state[f"{base}_phase.{rest}"]])
+    return out

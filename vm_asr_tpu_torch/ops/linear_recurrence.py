@@ -10,7 +10,9 @@ counterpart of the TPU kernel ``_lr_pallas``), and its backward launches the
 same kernel in reverse (``linear_recurrence_reverse``, the counterpart of
 ``_lr_bwd``). For CPU tensors both directions run their plain versions. Each
 forward launch adds one to ``linear_recurrence.launches``, each reverse launch
-one to ``linear_recurrence_reverse.launches``.
+one to ``linear_recurrence_reverse.launches``. Under ``torch.func.vmap`` the
+vmapped axis folds into the rows, one launch for all of them, forward only
+(the stream-stacked generator serves only).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from .build import load
 from .lookback import current_stream, lookback_smem, lookback_work_bytes, lookback_workspace
+from .selective_scan_fused import fold_vmapped, serve_only
 from .selective_scan_ref import linear_recurrence_ref
 
 # The device kernel one launch of each wrapper runs, under the names
@@ -204,18 +207,27 @@ def _lr_backward(ctx, g):
     return da.to(a.dtype), db
 
 
+def _lr_vmap(info, in_dims, a, b):
+    """The batching rule: one call over the rows of every vmapped entry."""
+    serve_only("linear_recurrence", (a, b))
+    n = info.batch_size
+    a, b = (fold_vmapped(t, d, n) for t, d in zip((a, b), in_dims))
+    h = _lr_forward(a.reshape(-1, *a.shape[2:]), b.reshape(-1, *b.shape[2:]))
+    return h.reshape(n, -1, *h.shape[1:]), 0
+
+
 class _LinearRecurrence(torch.autograd.Function):
     """The route of a recurrence outside an activation checkpoint: an
     autograd Function costs the host less per call than the dispatcher op
     below."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        h = _lr_forward(a, b)
-        _lr_setup(ctx, (a, b), h)
-        return h
+    def forward(a, b):
+        return _lr_forward(a, b)
 
+    setup_context = staticmethod(_lr_setup)
     backward = staticmethod(_lr_backward)
+    vmap = staticmethod(_lr_vmap)
 
 
 @torch.library.custom_op("vmasr::linear_recurrence", mutates_args=(),
@@ -233,6 +245,7 @@ def _(a, b):
 
 
 linear_recurrence_op.register_autograd(_lr_backward, setup_context=_lr_setup)
+linear_recurrence_op.register_vmap(_lr_vmap)
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor, as_op: bool = False) -> torch.Tensor:

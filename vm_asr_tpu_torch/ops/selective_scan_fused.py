@@ -17,6 +17,14 @@ can keep. For CUDA tensors its forward launches the kernel in
 rebuilds h from them. For CPU tensors both directions run their plain
 versions, and the plain backward ignores ``H0``. Each launch adds one to
 ``selective_scan_fused.launches`` or ``selective_scan_fused_bwd.launches``.
+
+Under ``torch.func.vmap`` (the stream-stacked generator,
+models/unet.py:DualStreamStackedMambaUNet) the scan keeps one launch: the
+vmapped axis S folds into the rows, (S·B, L, K·D), and A, dt_bias and
+D_skip become S parameter sets (S, K·D) that the kernel reads per run of B
+rows, as ``pallas_call``'s batching rule runs ``_fused_fwd_pallas`` under
+the JAX package's ``nn.vmap``. That route serves only: a vmapped call that
+needs a gradient raises.
 """
 
 from __future__ import annotations
@@ -86,15 +94,34 @@ def _plain_states(u, dts, bs, a_neg, dt_bias, k_group: int):
                                  dim=-2), uf
 
 
+def _by_group(fn):
+    """``fn`` over S parameter sets: A, dt_bias and D_skip of shape (S, K·D)
+    apply to runs of B / S rows each (the kernel's parameter groups)."""
+    @functools.wraps(fn)
+    def grouped(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group, *args):
+        if a_neg.dim() == 1:
+            return fn(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group, *args)
+        s = a_neg.shape[0]
+        rows = lambda t: t.reshape(s, t.shape[0] // s, *t.shape[1:])  # noqa: E731
+        sets = lambda p: p[:, None, None]  # noqa: E731
+        out = fn(rows(u), rows(dts), rows(bs), rows(cs), sets(a_neg), sets(dt_bias),
+                 sets(d_skip), k_group, *args)
+        return out.reshape(-1, *out.shape[2:])
+    return grouped
+
+
+@_by_group
 def selective_scan_fused_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip,
                                k_group: int) -> torch.Tensor:
     """The forward kernel's plain version: the same fp32 maths in torch ops
-    (fp64 maths for fp64 inputs)."""
+    (fp64 maths for fp64 inputs). A, dt_bias and D_skip are (K·D,), or
+    (S, K·D) parameter sets, each for a run of B / S rows."""
     h, uf = _plain_states(u, dts, bs, a_neg, dt_bias, k_group)
     c_lanes = cs.to(h.dtype).repeat_interleave(u.shape[-1] // k_group, dim=-1)
     return (c_lanes * h + d_skip.to(h.dtype) * uf).to(u.dtype)
 
 
+@_by_group
 def fused_chunk_states_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: int,
                              chunk: int) -> torch.Tensor:
     """The plain version of the forward kernel's H0: the state entering each
@@ -102,9 +129,9 @@ def fused_chunk_states_plain(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: in
     fp64 inputs); 0 for the first chunk. ``cs`` and ``d_skip`` take no part
     in it; they are taken so that the call matches the kernel's."""
     h, _ = _plain_states(u, dts, bs, a_neg, dt_bias, k_group)
-    n_chunks = -(-u.shape[1] // chunk)
-    return torch.cat([torch.zeros_like(h[:, :1]), h[:, chunk - 1::chunk][:, :n_chunks - 1]],
-                     dim=1)
+    n_chunks = -(-u.shape[-2] // chunk)
+    steps = h[..., chunk - 1::chunk, :][..., :n_chunks - 1, :]
+    return torch.cat([torch.zeros_like(h[..., :1, :]), steps], dim=-2)
 
 
 def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
@@ -145,7 +172,7 @@ def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
 def _fwd_kernel():
     fn = load("fused_scan.cu").vmasr_fused_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_uint32]
-                   + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -305,8 +332,11 @@ def _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
         raise ValueError(f"K·D = {kd} is not a multiple of K = {k_group}")
     if bs.shape != (bsz, l, k_group) or cs.shape != bs.shape:
         raise ValueError(f"bs, cs must be {(bsz, l, k_group)}, got {tuple(bs.shape)}, {tuple(cs.shape)}")
-    if any(p.shape != (kd,) for p in (a_neg, dt_bias, d_skip)):
-        raise ValueError(f"A, dt_bias, D_skip must be ({kd},)")
+    sets = a_neg.shape[0] if a_neg.dim() == 2 else 1
+    if any(p.shape != a_neg.shape for p in (dt_bias, d_skip)) or \
+            a_neg.shape[-1:] != (kd,) or a_neg.dim() > 2 or bsz % sets:
+        raise ValueError(f"A, dt_bias, D_skip must be ({kd},) or (S, {kd}) with S dividing "
+                         f"B = {bsz}, got {[tuple(p.shape) for p in (a_neg, dt_bias, d_skip)]}")
     if u.dtype not in _IO_DTYPES or any(t.dtype != u.dtype for t in (dts, bs, cs)):
         raise TypeError("u, dts, bs, cs must share one dtype, float32 or bfloat16")
     if any(p.dtype != torch.float32 for p in (a_neg, dt_bias, d_skip)):
@@ -323,9 +353,10 @@ def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: in
                              max_ctas: int = 0, window: int = _FWD_WINDOW):
     """Launch the forward kernel on CUDA tensors. Returns (y, H0, chunk): y
     (B, L, K·D) in u's dtype, H0 (B, n_chunks, K·D) fp32 the state entering
-    each L-chunk of length ``chunk``. ``max_ctas`` > 0 caps the persistent
-    grid and ``window`` sets the look-back's W: checks that the result does
-    not depend on them."""
+    each L-chunk of length ``chunk``. A, dt_bias and D_skip are (K·D,), or S
+    parameter sets (S, K·D), set s serving rows s·B/S .. (s+1)·B/S − 1.
+    ``max_ctas`` > 0 caps the persistent grid and ``window`` sets the
+    look-back's W: checks that the result does not depend on them."""
     if u.device.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {u.device}")
     _check(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
@@ -340,8 +371,8 @@ def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: in
     err = _fwd_kernel()(u.data_ptr(), dts.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                         a_neg.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(),
                         y.data_ptr(), h0.data_ptr(), work.data_ptr(), work.numel(), epoch,
-                        bsz, l, kd, k_group, chunk, int(u.dtype == torch.bfloat16),
-                        *tile, max_ctas, stream)
+                        bsz, l, kd, k_group, chunk, bsz // (a_neg.numel() // kd),
+                        int(u.dtype == torch.bfloat16), *tile, max_ctas, stream)
     if err:
         raise RuntimeError(f"selective_scan_fused kernel launch failed: cudaError {err}")
     selective_scan_fused.launches += 1
@@ -356,6 +387,8 @@ def selective_scan_fused_bwd(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip, h0,
     CPU tensors take the plain version (which ignores ``h0`` and ``chunk``);
     CUDA tensors launch the backward kernel, which needs ``h0`` and ``chunk``
     from the forward kernel."""
+    if a_neg.dim() != 1:
+        raise ValueError("the backward takes one parameter set: A, dt_bias, D_skip (K·D,)")
     if _on_cpu(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip):
         return selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias,
                                               d_skip, k_group)
@@ -405,6 +438,7 @@ def _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
 
 def _fused_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:7], output[1])
+    ctx.mark_non_differentiable(output[1])
     ctx.k_group = inputs[7]
 
 
@@ -416,17 +450,45 @@ def _fused_backward(ctx, dy, _dh0=None):
     return (*grads, None)
 
 
+def serve_only(name: str, tensors) -> None:
+    """Raise if a vmapped scan call needs a gradient: its rule launches the
+    forward alone (the stacked generator serves only, as in the JAX
+    package)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} under torch.func.vmap serves only and has no gradient; "
+                           "run it under torch.no_grad() or torch.inference_mode()")
+
+
+def fold_vmapped(t, bdim, n: int) -> torch.Tensor:
+    """A vmapped tensor with its vmapped axis (``bdim``, or None: the same
+    tensor for every entry) made the outermost, size ``n``, contiguous."""
+    t = t.expand(n, *t.shape) if bdim is None else t.movedim(bdim, 0)
+    return t.contiguous()
+
+
+def _fused_vmap(info, in_dims, u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+    """The batching rule: one call over (S·B, L, K·D) rows with S parameter
+    sets; returns (y, H0) with the vmapped axis first."""
+    serve_only("selective_scan_fused", (u, dts, bs, cs, a_neg, dt_bias, d_skip))
+    n = info.batch_size
+    rows = [fold_vmapped(t, d, n) for t, d in zip((u, dts, bs, cs), in_dims)]
+    sets = [fold_vmapped(t, d, n) for t, d in zip((a_neg, dt_bias, d_skip), in_dims[4:7])]
+    y, h0 = _fused_forward(*(r.reshape(-1, *r.shape[2:]) for r in rows), *sets, k_group)
+    return (y.reshape(n, -1, *y.shape[1:]), h0.reshape(n, -1, *h0.shape[1:])), (0, 0)
+
+
 class _FusedScan(torch.autograd.Function):
     """The route of a scan outside an activation checkpoint: an autograd
-    Function costs the host less per call than the dispatcher op below."""
+    Function costs the host less per call than the dispatcher op below.
+    Returns (y, H0); H0 carries no gradient."""
 
     @staticmethod
-    def forward(ctx, u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
-        y, h0 = _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
-        _fused_setup(ctx, (u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group), (y, h0))
-        return y
+    def forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
+        return _fused_forward(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
 
+    setup_context = staticmethod(_fused_setup)
     backward = staticmethod(_fused_backward)
+    vmap = staticmethod(_fused_vmap)
 
 
 @torch.library.custom_op(
@@ -449,6 +511,7 @@ def _(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group):
 
 
 fused_scan_op.register_autograd(_fused_backward, setup_context=_fused_setup)
+fused_scan_op.register_vmap(_fused_vmap)
 
 
 def selective_scan_fused(u, dts, bs, cs, a_neg, dt_bias, d_skip,
@@ -466,12 +529,13 @@ def selective_scan_fused(u, dts, bs, cs, a_neg, dt_bias, d_skip,
                an activation checkpoint can keep; else an autograd Function.
     CPU tensors take the plain versions; CUDA tensors launch the kernels,
     which take contiguous tensors of these shapes and dtypes and nothing
-    else."""
+    else. Under ``torch.func.vmap`` both routes take one launch over the
+    vmapped axis folded into the rows, forward only."""
     if not _on_cpu(u, dts, bs, cs, a_neg, dt_bias, d_skip) and u.device.type != "cuda":
         raise ValueError(f"expected CUDA or CPU tensors, got {u.device}")
     if as_op:
         return torch.ops.vmasr.fused_scan(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)[0]
-    return _FusedScan.apply(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)
+    return _FusedScan.apply(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group)[0]
 
 
 selective_scan_fused.launches = 0

@@ -7,14 +7,14 @@ and feature-matching terms from each discriminator run on real and fake as
 one batch with its spectral-norm statistics frozen); the generator's
 gradient, taken over its own parameters only, and its update; then each
 discriminator's loss on real and on the detached fake from before the
-generator's update (two calls, each advancing the power iteration), its
-gradient and update; then the metrics. The metric names are the JAX
-package's.
+generator's update (two calls, each advancing the power iteration), with
+GAN_LOSS_TYPE wgan-gp plus the gradient penalty, its gradient and update;
+then the metrics. The metric names are the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,24 +46,38 @@ def _waveform_terms(gen_losses, stft_kwargs, wave_out, y) -> Dict[str, torch.Ten
     return terms
 
 
+def gp_alphas(rng: torch.Generator, batch: int, count: int):
+    """The wgan-gp interpolation weights of one step: for the discriminator
+    of index ``di`` in sorted name order, (``batch``, 1, 1) uniform draws
+    from a generator seeded from one draw of the step's ``rng`` and ``di``,
+    the counterpart of the JAX step's ``fold_in(rng, di)`` (a stable index,
+    never ``hash(name)``)."""
+    base = int(torch.randint(2**62, (1,), generator=rng, device=rng.device).item())
+    out = []
+    for di in range(count):
+        g = torch.Generator(device=rng.device).manual_seed((base + di * 0x9E3779B97F4A7C15) % 2**63)
+        out.append(torch.rand((batch, 1, 1), generator=g, device=rng.device))
+    return out
+
+
 def make_train_step(config, generator: torch.nn.Module,
-                    discriminators: Dict[str, torch.nn.Module]) -> Callable:
+                    discriminators: Dict[str, torch.nn.Module],
+                    gp_alpha: Optional[Callable] = None) -> Callable:
     """Returns train_step(gen_state, disc_states, batch, rng) → (gen_state,
     disc_states, metrics), updating the states in place.
 
     ``batch``: {"wave_input", "wave_target": (B, 1, T), "highcut": (B,)} on
     the models' device; ``rng``: a ``torch.Generator`` on that device, which
-    feeds the generator's DropPath masks.
-    ``train_step.gen_loss_fn(x, y, hf, rng)`` → (total, wave_out, terms) is
-    the generator's loss, for gradient checks. GAN_LOSS_TYPE "wgan-gp" (the
-    gradient penalty in the discriminator step) is not ported yet and
-    raises; ``losses.gradient_penalty`` is."""
+    feeds the generator's DropPath masks and, with GAN_LOSS_TYPE wgan-gp, the
+    penalty's interpolation weights (``gp_alphas``; ``gp_alpha(rng, batch,
+    count)`` takes their place, e.g. to feed a test the same draws as the JAX
+    step). ``train_step.gen_loss_fn(x, y, hf, rng)`` → (total, wave_out,
+    terms) is the generator's loss, for gradient checks."""
     gen_losses, stft_kwargs = build_gen_loss_terms(config)
     adv = config.TRAIN.ADVERSARIAL
     gan = bool(adv.ENABLE) and len(discriminators) > 0
     gan_type = adv.GAN_LOSS_TYPE
-    if gan and gan_type == "wgan-gp":
-        raise NotImplementedError("GAN_LOSS_TYPE wgan-gp: the penalty's step is not ported yet")
+    gp_alpha = gp_alpha or gp_alphas
     metric_fns = get_metrics(config.TRAIN.METRICS)
     disc_names = tuple(sorted(discriminators))
     disc_gain = float(adv.get("DISC_INPUT_GAIN", 1.0))
@@ -88,10 +102,21 @@ def make_train_step(config, generator: torch.nn.Module,
                         L.feature_matching_loss(f_r, f_g)
         return sum(terms.values()), wave_out, terms
 
-    def disc_loss(name, y, fake):
+    def disc_loss(name, y, fake, alpha):
+        penalty = 0.0
+        if gan_type == "wgan-gp":
+            # Gradient penalty on interpolates (reference trainer.py:374-378,
+            # loss.py:237-260), in D's own input space: with DISC_INPUT_GAIN
+            # the endpoints are scaled, so the unit-norm target constrains D,
+            # not D∘gain. It runs first, on the spectral-norm statistics the
+            # JAX step differentiates it with (before this step's passes
+            # update them); its pass updates none.
+            penalty = L.gradient_penalty(
+                lambda v: discriminators[name](v, None, update_stats=False)[0],
+                y * disc_gain, fake * disc_gain, alpha, gp_weight=adv.GP_LAMBDA)
         y_r, y_g, _, _ = disc_forward(name, y, fake, update_stats=True)
         gaps = torch.stack([dr.float().mean() - dg.float().mean() for dr, dg in zip(y_r, y_g)])
-        return L.discriminator_loss(y_r, y_g, gan_type), gaps
+        return L.discriminator_loss(y_r, y_g, gan_type) + penalty, gaps
 
     def train_step(gen_state, disc_states, batch, rng: torch.Generator):
         x, y, hf = batch["wave_input"], batch["wave_target"], batch["highcut"]
@@ -106,9 +131,11 @@ def make_train_step(config, generator: torch.nn.Module,
         if gan:
             fake = wave_out.detach()
             d_total = 0.0
-            for name in disc_names:
+            alphas = gp_alpha(rng, y.shape[0], len(disc_names)) if gan_type == "wgan-gp" \
+                else [None] * len(disc_names)
+            for name, alpha in zip(disc_names, alphas):
                 ds = disc_states[name]
-                d_loss, gaps = disc_loss(name, y, fake)
+                d_loss, gaps = disc_loss(name, y, fake, alpha)
                 d_grads = torch.autograd.grad(d_loss, ds.params, allow_unused=True,
                                               materialize_grads=True)
                 ds.apply_gradients(d_grads)
