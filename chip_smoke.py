@@ -24,7 +24,13 @@ raising on failure:
    another order, and must give the same bits again. One recurrence call
    must be one kernel on the device, launched once and right. The backward
    is also timed with a cold L2.
-3b. look-back window: the three one-launch scans' device time per train
+3b. look-back under contention: a kernel built here (HOLD_SOURCE) holds 128
+   of the card's 132 SMs for 200 ms while the fused forward and the
+   recurrence (both directions) run at a main-path shape on another
+   stream; each must end before the hold does, on the 4 SMs left, with the
+   bits of its uncontended run (the look-back's tile ticket,
+   csrc/scan_common.cuh).
+3c. look-back window: the three one-launch scans' device time per train
    step and per batch-1 forward with the look-back's checkpoint spacing W
    at 8, 16, 32 and 64 (each wrapper's own W is the one it ships).
 4. model: one flagship segment in fp32 through the generator with the
@@ -90,7 +96,19 @@ raising on failure:
    get_loaders, DATA.PIPELINE grain, 4 workers, TRAIN_SPLIT [2,1], 5 steps,
    a validation batch, one step profiled, checkpoints) and runs --eval on
    the held-out speaker's converted clips, with exact launch counts.
-13. the kernels line, the card line, and the result line.
+13. parallel: two ranks on cuda:0 over gloo (NCCL takes one rank a card):
+   the flagship fp32 GAN step at global batch 4 (2 rows a rank) against
+   one process, losses and every gradient leaf within 5× a control (read
+   against two: the one-process step on the rows permuted, and on the rows
+   twice over, batch 8; PAR_CONTROL's gates); three chained dp2
+   steps, a rank-0 checkpoint, a restore on both ranks and a resumed step
+   against the same in one process; dp1 × mp2 (each rank scans 2 of the 4
+   directions) against the unsplit forward and gradients; the
+   sequence-sharded fused scan over the two ranks at (4, 16384, 128)
+   against the one-device kernel; NCCL at world size 1 through the dp
+   step's collectives; and the CLI's ranks (--opts MESH.DP 2) on the card;
+   with the dp2 step's ms and the phase's seconds beside the card's line.
+14. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -2004,6 +2022,644 @@ def stacked_phase(smi, cli_throughput, mpd_step):
     return report
 
 
+
+# ------------------------------------------------------------ look-back contention
+# A kernel that holds all but HOLD_FREE_SMS of the card's SMs (one CTA per SM:
+# the most shared memory a block may take, so nothing else fits beside it)
+# for HOLD_MS by %globaltimer, and a one-CTA kernel that waits until every
+# holding CTA has started. Plain C interface, built by nvcc beside the port's
+# kernels.
+HOLD_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__global__ void hold_kernel(unsigned long long ns, unsigned* started) {
+  extern __shared__ unsigned char smem[];
+  if (threadIdx.x == 0) atomicAdd(started, 1u);
+  const uint64_t t0 = now_ns();
+  while (now_ns() - t0 < ns) {
+    if (threadIdx.x == 0) smem[0] = 1;
+    __nanosleep(1000);
+  }
+}
+__global__ void wait_kernel(const unsigned* started, unsigned n) {
+  while (atomicAdd((unsigned*)started, 0u) < n) __nanosleep(1000);
+}
+extern "C" int vmasr_hold_sms(int ctas, long long ns, unsigned* started, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(hold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  hold_kernel<<<ctas, 1024, smem, (cudaStream_t)stream>>>((unsigned long long)ns, started);
+  return (int)cudaGetLastError();
+}
+extern "C" int vmasr_wait_started(unsigned* started, unsigned n, void* stream) {
+  wait_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(started, n);
+  return (int)cudaGetLastError();
+}
+"""
+HOLD_MS = 200.0
+HOLD_FREE_SMS = 4
+HOLD_SMEM = 232448  # a block's largest dynamic shared memory on an H100
+
+
+def hold_build_start():
+    """Start nvcc on HOLD_SOURCE (beside the kernels' builds); returns
+    (process or None when built already, library path)."""
+    from vm_asr_tpu_torch.ops.build import BUILD_ROOT, NVCC_FLAGS, nvcc_path
+
+    src = BUILD_ROOT / "chip_smoke_hold.cu"
+    lib = BUILD_ROOT / "chip_smoke_hold.so"
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    if lib.exists() and src.exists() and src.read_text() == HOLD_SOURCE:
+        return None, lib
+    src.write_text(HOLD_SOURCE)
+    return subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def contention_check(name, call, ref):
+    """The scan ``call()`` (returning its output tensor) on a stream of its
+    own while the hold kernel holds all but HOLD_FREE_SMS SMs on another for
+    HOLD_MS: the scan's CTAs that find no room wait to be resident, and the
+    look-back must not wait on them. (Both are side streams: the legacy
+    default stream would wait for the hold to end first.) The scan kernel
+    must end before the hold does, by CUDA events from the hold's start, and
+    its output must equal ``ref`` bit for bit."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(HOLD_LIB[0]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = sms - HOLD_FREE_SMS
+    started = torch.zeros(1, dtype=torch.int32, device="cuda")
+    side, mine = torch.cuda.Stream(), torch.cuda.Stream()
+    # First launches load a kernel's module, which waits for the device: make
+    # them now, and the scan's look-back workspace on its stream.
+    with torch.cuda.stream(mine):
+        err = lib.vmasr_hold_sms(1, ctypes.c_longlong(0), ctypes.c_void_p(started.data_ptr()),
+                                 HOLD_SMEM, ctypes.c_void_p(mine.cuda_stream)) or \
+            lib.vmasr_wait_started(ctypes.c_void_p(started.data_ptr()), 0,
+                                   ctypes.c_void_p(mine.cuda_stream))
+        call()
+    started.zero_()
+    torch.cuda.synchronize()
+    t0, hold_end, scan_start, scan_end = (torch.cuda.Event(enable_timing=True) for _ in range(4))
+    with torch.cuda.stream(side):
+        t0.record()
+        err = err or lib.vmasr_hold_sms(ctas, ctypes.c_longlong(int(HOLD_MS * 1e6)),
+                                        ctypes.c_void_p(started.data_ptr()), HOLD_SMEM,
+                                        ctypes.c_void_p(side.cuda_stream))
+        hold_end.record()
+    with torch.cuda.stream(mine):
+        err = err or lib.vmasr_wait_started(ctypes.c_void_p(started.data_ptr()), ctas,
+                                            ctypes.c_void_p(mine.cuda_stream))
+        if err:
+            raise RuntimeError(f"{name}: the hold kernels did not launch (cudaError {err})")
+        scan_start.record()
+        out = call()
+        scan_end.record()
+    torch.cuda.synchronize()
+    hold_ms, start_ms, end_ms = (t0.elapsed_time(e) for e in (hold_end, scan_start, scan_end))
+    same = torch.equal(out, ref)
+    print(f"{name}: while {ctas} of {sms} SMs were held for {hold_ms:.1f} ms, the scan ran from "
+          f"{start_ms:.2f} to {end_ms:.2f} ms ({end_ms - start_ms:.3f} ms on the other "
+          f"{HOLD_FREE_SMS}); bitwise equal to the uncontended run: {same}")
+    if not end_ms < hold_ms or not same:
+        raise AssertionError(f"{name}: the scan did not finish while another kernel held the "
+                             "card's SMs, or its output changed")
+    return dict(scan=name, held_sms=ctas, sms=sms, hold_ms=hold_ms, scan_start_ms=start_ms,
+                scan_end_ms=end_ms, contended_ms=end_ms - start_ms)
+
+
+HOLD_LIB = [None]
+
+
+def lookback_contention(gen):
+    """The fused forward and the recurrence (forward and reverse) at
+    main-path shapes, each under contention_check, against their own
+    uncontended output."""
+    args, _ = fused_inputs(TRAIN_BATCH, 16384, 128, torch.bfloat16, gen)
+    out = [contention_check("fused forward (4, 16384, 128) bf16",
+                            lambda: selective_scan_fused_fwd(*args)[0],
+                            selective_scan_fused_fwd(*args)[0])]
+    a, b, h, grad = lr_inputs(TRAIN_BATCH, 65536, 64, gen, 1_000_003)
+    out.append(contention_check("recurrence forward (4, 65536, 64) fp32",
+                                lambda: linear_recurrence_fwd(a, b), linear_recurrence_fwd(a, b)))
+    out.append(contention_check("recurrence reverse (4, 65536, 64) fp32",
+                                lambda: linear_recurrence_reverse(a, h, grad)[0],
+                                linear_recurrence_reverse(a, h, grad)[0]))
+    return out
+
+
+# ------------------------------------------------------------------ parallel
+# Two ranks on cuda:0 over gloo (NCCL takes one rank a card, and the script
+# needs one card), then NCCL at world size 1.
+#
+# The input: the flagship task's, speech at 48 kHz with nothing above 8 kHz
+# (a 16 kHz input brought to 48 kHz). A rank runs the step on 2 rows, the
+# one process on 4. cuFFT rounds other batch sizes differently, and the
+# generator turns that into O(1) where a bin's phase sits near ±π (angle()
+# flips) and where log2 takes the empty band's rounding: the port's STFT
+# takes each signal on its own on the card (dsp/stft.py), and batch_rows
+# measures, in every run, how far the same rows' output moves between batch
+# 2 and batch 4 (it was 17 % of the output's largest value before).
+#
+# The rows' batch dependence gates too: within PAR_ROWS_BAR, about 5× its
+# reading on an H100 (5.7e-5); with one batched transform of every signal
+# it read 0.17, so a return to that fails the run.
+#
+# The controls, both read every run: "permuted", the one-process step on
+# the batch's rows in reverse order (only the order of the batch's sums
+# changes), and "batch 8", the one-process step on the 4 rows twice over
+# (the same loss and gradient, other shapes for every op, as a rank's 2
+# rows are). PAR_CONTROL's readings gate: batch 8. The permuted control
+# leaves every op's shape and so every row's rounding as it was, while a
+# rank's ops run at 2 rows and round otherwise (batch_rows). On an H100 it
+# moved a cancelling generator leaf (a dt_projs weight or bias of the first
+# encoder stage) by ~3e-6 of its scale, where dp2 moved it by 1.6e-2 and
+# batch 8 by at least half that (dp2 read ≤ 2.2× batch 8 on every leaf).
+# Bars, each floored at
+# PAR_LOSS_REL of the value (losses) or fp32's epsilon of a leaf's scale
+# (gradients):
+# - dp2 against one process at the same global batch: each first-step loss,
+#   and each gradient leaf's max |diff|, within PAR_CONTROL_X times the
+#   control's;
+# - chained steps and the resume: each step's losses within PAR_CONTROL_X
+#   times the control chain's, and the generator's parameters after within
+#   PAR_PARAM_LR of one step (lr) of the one process's;
+# - dp1 × mp2: the forward within 1e-5 of the unsplit one (max |diff| / max
+#   |ref|), the gradients within tests/test_mp.py:78-79's rtol 2e-4, atol
+#   2e-5, the two ranks' forwards bitwise alike and their gradients within
+#   those bars of each other (the card's backward reductions run in no fixed
+#   order; the train step averages them over the mp group);
+# - the sequence-sharded scan: fp32 IO within tests/test_seq_scan.py's 2e-4
+#   and its gradients within 2e-3; bf16 IO, each element within its
+#   roundings: a shard's scan rounds its zero-state y_local to bf16 before
+#   the carried-in state's correction is added, as in the JAX package, and
+#   rounds the sum again, and the one-device kernel rounds once; half a
+#   bf16 ulp is at most 2^-8 of a value, so |y − ref| ≤ 2^-8·|y_local| +
+#   2^-7·|ref|, plus the fp32 bar for the rest.
+PAR_DIR = ROOT / "build" / "chip_smoke_parallel"
+PAR_RANKS = 2
+PAR_LOSS_REL = 1e-5
+PAR_CONTROL_X = 5.0
+PAR_CONTROL = "batch 8"
+PAR_ROWS_BAR = 3e-4
+PAR_CHAIN, PAR_PARAM_LR = 3, 0.5
+PAR_TIMED = 3
+MP_FWD_REL = 1e-5
+MP_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+SEQ_SHAPE = (TRAIN_BATCH, 16384, 128)
+SEQ_TOL, SEQ_GRAD_TOL = dict(rtol=2e-4, atol=2e-4), dict(rtol=2e-3, atol=2e-3)
+LOSS_KEYS = ("total_loss", "generator/multi_resolution_stft", "generator/adversarial_mpd",
+             "generator/features_mpd", "discriminator/mpd")
+
+
+def batch_rows(cfg):
+    """max |rows 0-1 at batch 2 − the same rows at batch 4| / max |batch 4|
+    of the generator's fp32 eval forward (one process)."""
+    gen = get_generator(cfg, "cuda").eval()
+    b = train_batch(cfg, seeds=range(50, 54))
+    with torch.no_grad():
+        y4 = gen(b["wave_input"], b["highcut"])
+        y2 = gen(b["wave_input"][:2], b["highcut"][:2])
+    return float((y2 - y4[:2]).abs().max() / y4.abs().max())
+
+
+def parallel_config():
+    """The flagship GAN config in fp32, DropPath off (the control permutes
+    the batch's rows, and a mask follows its row)."""
+    cfg = flagship_config(amp=False, gan=True).defrost()
+    cfg.MODEL.VSSM.DROP_PATH_RATE = 0.0
+    cfg.freeze()
+    return cfg
+
+
+def par_build(cfg, init):
+    """The flagship generator and MPD on the card with the weights ``init``,
+    and their fresh train states."""
+    from vm_asr_tpu_torch.models import get_discriminators as discs_of
+
+    gen, discs = get_generator(cfg, "cuda"), discs_of(cfg, "cuda")
+    gen.load_state_dict(init["generator"])
+    for n, d in discs.items():
+        d.load_state_dict(init[n])
+    return (gen, discs, GenState(gen, make_optimizer(cfg, 1000, gen)),
+            {n: DiscState(d, make_optimizer(cfg, 1000, d)) for n, d in discs.items()})
+
+
+def record_first_gradients(state, name, into):
+    """Have ``state``'s optimizer copy the first gradients it takes (the
+    step's, averaged over dp) to the host, as ``into[name]``."""
+    apply = state.optimizer.apply
+
+    def recording(grads):
+        grads = list(grads)
+        into[name] = [g.detach().float().cpu() for g in grads]
+        state.optimizer.apply = apply
+        return apply(grads)
+
+    state.optimizer.apply = recording
+
+
+def par_chain(cfg, init, batches, mesh=None, ckpt_dir=None, timed=0):
+    """PAR_CHAIN + 1 flagship GAN steps (fp32) from ``init`` on ``batches``
+    (global batches on the host); with a dp ``mesh``, this rank's rows.
+    After PAR_CHAIN steps the states go to ``ckpt_dir`` (rank 0 writes) and
+    every rank restores them into models built anew, which take the last
+    step. Returns each step's losses, the first step's gradients by model
+    (on the host) and the generator's parameters after, and with ``timed``
+    the ms of that many more steps (CUDA events, after a barrier each)."""
+    from vm_asr_tpu_torch.core.checkpoint import CheckpointManager
+    from vm_asr_tpu_torch.parallel import shard_batch
+
+    first = {}
+
+    def build():
+        gen, discs, gs, ds = par_build(cfg, init)
+        if not first:  # the models of the first step
+            for name, state in (("generator", gs), *ds.items()):
+                record_first_gradients(state, name, first)
+        return gen, gs, ds, make_train_step(cfg, gen, discs, mesh=mesh)
+
+    gen, gs, ds, step = build()
+    rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
+    losses = []
+
+    def one(i, b):
+        db = {k: v.cuda() for k, v in b.items()}
+        if mesh is not None:
+            db = shard_batch(db, mesh)
+        return step(gs, ds, db, rng)[2]
+
+    for i, b in enumerate(batches[:PAR_CHAIN + 1] if ckpt_dir else batches[:1]):
+        if ckpt_dir and i == PAR_CHAIN:
+            ckpt = CheckpointManager(str(ckpt_dir))
+            ckpt.save("G", gs, 0, 0.0)
+            for n, s in ds.items():
+                ckpt.save(n, s, 0, 0.0)
+            ckpt.barrier()
+            gen, gs, ds, step = build()
+            for tag, s in [("G", gs), *ds.items()]:
+                ckpt.restore("G" if tag == "G" else tag, "latest", target=s)
+        m = one(i, b)
+        losses.append({k: float(m[k]) for k in LOSS_KEYS})
+    times = []
+    for i in range(timed):
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        one(i, batches[i % len(batches)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return dict(losses=losses, grads=first, step_ms=times,
+                names={"generator": [n for n, _ in gen.named_parameters()]},
+                gen_after={k: v.cpu() for k, v in gen.state_dict().items()})
+
+
+def par_mp(cfg, init, mesh=None):
+    """The fp32 generator's forward on two segments and the gradients of
+    mean((out − y)²), with the K directions split over ``mesh``'s mp axis
+    when given, and the scans' launches of the forward."""
+    from vm_asr_tpu_torch.parallel import set_activation_mesh
+
+    gen = par_build(cfg, init)[0]
+    batch = train_batch(cfg, seeds=(40, 41))
+    set_activation_mesh(mesh)
+    try:
+        zero_counts()
+        with torch.no_grad():
+            gen.eval()
+            out = gen(batch["wave_input"], batch["highcut"])
+        launches = read_counts()
+        gen.train()
+        out_t = gen(batch["wave_input"], batch["highcut"], generator=torch.Generator("cuda"))
+        loss = (out_t - batch["wave_target"]).square().mean()
+        grads = torch.autograd.grad(loss, list(gen.parameters()))
+    finally:
+        set_activation_mesh(None)
+    return dict(out=out.cpu(), grads=[g.cpu() for g in grads], launches=launches,
+                names=[n for n, _ in gen.named_parameters()])
+
+
+def seq_inputs(dtype):
+    """The sequence-sharded scan's inputs at SEQ_SHAPE (the model's ranges),
+    in (B, L, K, D), and the weights of the loss Σ y·w."""
+    b, l, kd = SEQ_SHAPE
+    (u, dts, bs, cs, a, bias, dsk, _), w = fused_inputs(b, l, kd, torch.bfloat16,
+                                                        torch.Generator().manual_seed(5))
+    d = kd // K
+    shape = (b, l, K, d)
+    return [u.reshape(shape).to(dtype), dts.reshape(shape).to(dtype),
+            a.reshape(K, d, 1), bs[..., None].to(dtype), cs[..., None].to(dtype),
+            dsk.reshape(K, d), bias.reshape(K, d)], w.reshape(shape).float()
+
+
+SEQ_NAMES = ("u", "dts", "A", "Bs", "Cs", "D", "bias")
+
+
+def par_seq(group=None):
+    """The sequence-sharded scan (this rank's half of L) or, without a
+    group, the one-device scan: y with bf16 IO, and y and the gradients of
+    Σ y·w with fp32 IO (the same bf16 values), through the fused kernel;
+    with the scans' launches of the fp32 forward and backward. Without a
+    group also ``local``: each half of L scanned alone from a zero state
+    with bf16 IO, the y that a rank rounds to bf16 before the carried-in
+    state's correction."""
+    from vm_asr_tpu_torch.ops import selective_scan as scan
+    from vm_asr_tpu_torch.ops.seq_scan import seq_sharded_selective_scan as seq_scan
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args, w = seq_inputs(dtype)
+        if group is not None:
+            n, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+            ls = SEQ_SHAPE[1] // n
+            cut = slice(r * ls, (r + 1) * ls)
+            args = [a[:, cut] if a.dim() == 4 else a for a in args]
+            w = w[:, cut]
+        args = [a.clone().requires_grad_(dtype == torch.float32) for a in args]
+        zero_counts()
+        y = seq_scan(*args, group=group) if group is not None else scan(*args)
+        if group is None and dtype == torch.bfloat16:
+            ls = SEQ_SHAPE[1] // PAR_RANKS
+            out["local"] = torch.cat([scan(*[a[:, r * ls:(r + 1) * ls] if a.dim() == 4 else a
+                                             for a in args]).cpu() for r in range(PAR_RANKS)],
+                                     dim=1)
+        if dtype == torch.float32:
+            out["grads"] = [g.cpu() for g in torch.autograd.grad((y.float() * w).sum(), args)]
+            out["launches"] = read_counts()
+        out[str(dtype)] = y.detach().cpu()
+    return out
+
+
+def par_rank(rank: int, init_method: str):
+    """One rank of the parallel phase (spawned, two on cuda:0 over gloo)."""
+    from vm_asr_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(rank, PAR_RANKS, init_method, "cuda:0", backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        spec = torch.load(PAR_DIR / "spec.pt", weights_only=False)
+        cfg = parallel_config()
+        res = {}
+        res["dp"] = par_chain(cfg, spec["init"], spec["batches"], mesh=make_mesh(dp=PAR_RANKS),
+                              ckpt_dir=PAR_DIR / "ckpt", timed=PAR_TIMED)
+        mesh = make_mesh(dp=1, mp=PAR_RANKS)
+        res["mp"] = par_mp(cfg, spec["init"], mesh)
+        res["seq"] = par_seq(mesh.mp_group)
+        torch.save(res, PAR_DIR / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def losses_vs_control(got, ref, ctrl):
+    """Per key, |got − ref| over max(PAR_CONTROL_X·|ctrl − ref|, PAR_LOSS_REL
+    ·|ref|): the worst ratio (≤ 1 passes), with the largest relative
+    difference and the control's."""
+    ratio = max(abs(got[k] - ref[k]) / max(PAR_CONTROL_X * abs(ctrl[k] - ref[k]),
+                                           PAR_LOSS_REL * abs(ref[k])) for k in LOSS_KEYS)
+    rel = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in LOSS_KEYS)
+    crel = max(abs(ctrl[k] - ref[k]) / abs(ref[k]) for k in LOSS_KEYS)
+    return ratio, rel, crel
+
+
+def grads_vs_control(got, ref, ctrl, names):
+    """Per leaf max|got − ref| over max(max|ctrl − ref|, fp32 eps × leaf
+    scale); the worst ratio and its leaf, with that leaf's max|got − ref|
+    and max|ctrl − ref| over its scale."""
+    worst = (0.0, None, 0.0, 0.0)
+    for name, g, r, c in zip(names, got, ref, ctrl):
+        scale = max(float(r.abs().max()), 1e-30)
+        dg, dc = float((g - r).abs().max()), float((c - r).abs().max())
+        ratio = dg / max(dc, 1.2e-7 * scale)
+        if ratio > worst[0]:
+            worst = (ratio, name, dg / scale, dc / scale)
+    return worst
+
+
+def par_cli(smi):
+    """The CLI's data-parallel training on the card: the CLI's rank entry
+    (``cli._rank_main``) with ``--opts MESH.DP 2``, two ranks on cuda:0 over
+    gloo, each reading its 2 rows of every global batch of 4 (the
+    flagship, bf16, 24 synthetic items: 5 steps and a validation batch);
+    rank 0 writes the log and the checkpoints, in the reference layout."""
+    import json as json_
+
+    runs = ROOT / "build" / "chip_smoke_dp2"
+    shutil.rmtree(runs, ignore_errors=True)
+    argv = ["--cfg", str(CONFIG), "--tag", "dp2", "--input_sr", "16000", "--synthetic_data",
+            "--synthetic_n", "24", "--opts", "TRAIN.EPOCHS", "1", "MESH.DP",
+            "2", "DATA.VALID_SPLIT", "0.2", "DATA.NUM_WORKERS", "2", "TENSORBOARD.ENABLE",
+            "False", "OUTPUT", str(runs)]
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        cli._rank_main, nprocs=2, start_method="spawn",
+        args=(2, f"tcp://127.0.0.1:{cli._free_port()}", argv, "gloo"))
+    secs = time.perf_counter() - t0
+    run_dir = runs / "DualStreamInteractiveMambaUNet" / "dp2"
+    files = sorted(p.name for p in run_dir.glob("checkpoint-*.pth"))
+    logs = sorted(p.name for p in run_dir.glob("log*"))
+    blob = torch.load(run_dir / "checkpoint-latest-G.pth", map_location="cpu", weights_only=True)
+    keys = set(get_generator(flagship_config(amp=True), "cuda").state_dict())
+    timing = next(json_.loads(line.split(" timing ", 1)[1]) for line in
+                  (run_dir / "log_rank0.txt").read_text().splitlines() if "Epoch 0 timing" in line)
+    ok = (files == [
+        f"checkpoint-{k}-{m}.pth" for k in ("best", "latest") for m in ("G", "mpd")]
+        and logs == ["log_rank0.txt"] and set(blob["state_dict"]) == keys
+        and (blob["step"], blob["epoch"], timing["steps"]) == (5, 0, 5))
+    print(f"cli, MESH.DP 2 on one card over gloo: {timing['steps']} steps of 2 rows a "
+          f"rank, s/it median {statistics.median(timing['step_s']):.4f} (rank 0, host clock), "
+          f"validation {timing['valid_s']:.3f} s, checkpoints {files} (keys the module's own: "
+          f"{set(blob['state_dict']) == keys}), logs {logs}, {secs:.1f} s in all  [{smi}]")
+    return ok, dict(seconds=secs, s_per_it=statistics.median(timing["step_s"]),
+                    steps=timing["steps"], checkpoints=files)
+
+
+def parallel_phase(smi):
+    """The parallel phase (phase 13 of the module docstring)."""
+    from vm_asr_tpu_torch.parallel import Mesh, init_distributed
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = parallel_config()
+    gen0 = get_generator(cfg, "cuda")
+    init = {"generator": {k: v.cpu() for k, v in gen0.state_dict().items()},
+            **{n: {k: v.cpu() for k, v in d.state_dict().items()}
+               for n, d in get_discriminators(cfg, "cuda").items()}}
+    del gen0
+    batches = [{k: v.cpu() for k, v in train_batch(
+        cfg, seeds=range(50 + TRAIN_BATCH * i, 50 + TRAIN_BATCH * (i + 1))).items()}
+        for i in range(PAR_CHAIN + 1)]
+    rows = batch_rows(cfg)
+    print(f"the same two rows at batch 2 and at batch 4, one process, fp32 eval forward: max|diff|"
+          f"/max|out| {rows:.3e} (bar {PAR_ROWS_BAR})")
+    failures = [] if rows <= PAR_ROWS_BAR else ["rows' batch dependence"]
+    torch.save(dict(init=init, batches=batches), PAR_DIR / "spec.pt")
+
+    t0 = time.perf_counter()
+    ref = par_chain(cfg, init, batches, ckpt_dir=PAR_DIR / "ckpt_one")
+    controls = {
+        "batch 8": par_chain(cfg, init, [{k: torch.cat([v, v]) for k, v in b.items()}
+                                         for b in batches], ckpt_dir=PAR_DIR / "ckpt_twice"),
+        "permuted": par_chain(cfg, init, [{k: v.flip(0) for k, v in b.items()} for b in batches],
+                              ckpt_dir=PAR_DIR / "ckpt_permuted"),
+    }
+    ctrl = controls[PAR_CONTROL]
+    mp_ref = par_mp(cfg, init)
+    seq_ref = par_seq()
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        par_rank, args=(f"tcp://127.0.0.1:{cli._free_port()}",), nprocs=PAR_RANKS,
+        start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(PAR_DIR / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+    report = dict(reference_s=ref_s, ranks_s=ranks_s, batch2_vs_batch4_rows=rows,
+                  control=PAR_CONTROL)
+
+    # dp2, the first step, against each control; PAR_CONTROL's gates.
+    d0, d1 = got[0]["dp"], got[1]["dp"]
+    same = d0["losses"] == d1["losses"] and all(
+        torch.equal(a, b) for n in d0["grads"] for a, b in zip(d0["grads"][n], d1["grads"][n]))
+    report["dp_step"], report["dp_chain"] = {"ranks_alike": same}, {}
+    lr = cfg.TRAIN.BASE_LR
+    param_lr = max(float((d0["gen_after"][k] - v).abs().max()) / lr
+                   for k, v in ref["gen_after"].items())
+    ckpts = sorted(p.name for p in (PAR_DIR / "ckpt").glob("*.pth"))
+    for cname, c in controls.items():
+        loss_ratio, loss_rel, ctrl_rel = losses_vs_control(d0["losses"][0], ref["losses"][0],
+                                                           c["losses"][0])
+        worst = {}
+        for model in ref["grads"]:
+            names = ref["names"]["generator"] if model == "generator" else \
+                [f"{model}.{i}" for i in range(len(ref["grads"][model]))]
+            worst[model] = grads_vs_control(d0["grads"][model], ref["grads"][model],
+                                            c["grads"][model], names)
+        gate = cname == PAR_CONTROL
+        print(f"dp2 step (2 ranks × 2 rows) vs one process at batch 4, fp32, against the "
+              f"{cname} control{' (the gate)' if gate else ' (read only)'}: first-step losses "
+              f"max rel {loss_rel:.3e} (control {ctrl_rel:.3e}; worst of the bar "
+              f"{loss_ratio:.3f}); gradients, worst max|diff| over the control's: " +
+              ", ".join(f"{m} {r:.2f} ({n}: {a:.2e} of its scale, control {b:.2e})"
+                        for m, (r, n, a, b) in worst.items()) +
+              f" (bar {PAR_CONTROL_X}); ranks bitwise alike: {same}")
+        if gate and (not loss_ratio <= 1 or any(w[0] > PAR_CONTROL_X for w in worst.values())
+                     or not same):
+            failures.append("dp2 step")
+        report["dp_step"][cname] = dict(loss_rel=loss_rel, control_loss_rel=ctrl_rel,
+                                        loss_of_bar=loss_ratio,
+                                        worst_vs_control={m: list(v) for m, v in worst.items()})
+
+        # Chained steps, rank-0 checkpoint, restore on both ranks, resumed step.
+        chain = [losses_vs_control(d0["losses"][i], ref["losses"][i], c["losses"][i])
+                 for i in range(PAR_CHAIN + 1)]
+        print(f"dp2 chain against the {cname} control: {PAR_CHAIN} steps, rank-0 checkpoint "
+              f"{ckpts}, restored on both ranks, 1 resumed step: losses max rel per step "
+              f"{[f'{x[1]:.2e}' for x in chain]} (control {[f'{x[2]:.2e}' for x in chain]}; "
+              f"worst of the bar {max(x[0] for x in chain):.3f}); generator after, max|diff| "
+              f"{param_lr:.3f} lr (bar {PAR_PARAM_LR})")
+        if gate and (max(x[0] for x in chain) > 1 or param_lr > PAR_PARAM_LR or
+                     ckpts != ["checkpoint-latest-G.pth", "checkpoint-latest-mpd.pth"] or
+                     d0["gen_after"].keys() != ref["gen_after"].keys()):
+            failures.append("dp2 chain and resume")
+        report["dp_chain"][cname] = dict(
+            loss_rel=[x[1] for x in chain], control_loss_rel=[x[2] for x in chain],
+            loss_of_bar=[x[0] for x in chain], param_max_diff_lr=param_lr, checkpoints=ckpts)
+
+    # dp1 × mp2.
+    m0, m1 = got[0]["mp"], got[1]["mp"]
+    fwd_rel = float((m0["out"] - mp_ref["out"]).abs().max() / mp_ref["out"].abs().max())
+    bad = [n for n, g, r in zip(mp_ref["names"], m0["grads"], mp_ref["grads"])
+           if not torch.allclose(g, r, **MP_GRAD_TOL)]
+    grad_err = max(float(((g - r).abs() - MP_GRAD_TOL["rtol"] * r.abs()).max())
+                   for g, r in zip(m0["grads"], mp_ref["grads"]))
+    alike = torch.equal(m0["out"], m1["out"]) and all(
+        torch.allclose(a, b, **MP_GRAD_TOL) for a, b in zip(m0["grads"], m1["grads"]))
+    print(f"dp1×mp2 (each rank scans 2 of the 4 directions), fp32: forward max|diff|/max|ref| "
+          f"{fwd_rel:.3e} (bar {MP_FWD_REL}); gradients outside rtol/atol {MP_GRAD_TOL}: {bad} "
+          f"(max |diff| - rtol·|ref| {grad_err:.3e}); ranks alike: {alike}; a forward's "
+          f"launches per rank {m0['launches']} (one process {mp_ref['launches']})")
+    if not fwd_rel <= MP_FWD_REL or bad or not alike or m0["launches"] != mp_ref["launches"]:
+        failures.append("mp2")
+    report["mp"] = dict(forward_rel=fwd_rel, grads_outside=bad, launches=m0["launches"])
+
+    # The sequence-sharded scan.
+    s0, s1 = got[0]["seq"], got[1]["seq"]
+    errs, seq_bad = {}, []
+    for key in ("torch.float32", "torch.bfloat16"):
+        y, r = torch.cat([s0[key], s1[key]], dim=1).float(), seq_ref[key].float()
+        errs[key] = float((y - r).abs().max())
+        if key == "torch.float32":
+            ok = torch.allclose(y, r, **SEQ_TOL)
+        else:  # each element within its own bf16 roundings 
+            bar = 2.0 ** -8 * seq_ref["local"].float().abs() + 2.0 ** -7 * r.abs() + \
+                SEQ_TOL["atol"]
+            errs["bf16_of_bar"] = float(((y - r).abs() / bar).max())
+            ok = errs["bf16_of_bar"] <= 1
+        if not ok:
+            seq_bad.append(key)
+    for i, name in enumerate(SEQ_NAMES):
+        g = torch.cat([s0["grads"][i], s1["grads"][i]], dim=1) if name in ("u", "dts", "Bs", "Cs") \
+            else s0["grads"][i]
+        errs[f"d{name}"] = float((g - seq_ref["grads"][i]).abs().max())
+        if not torch.allclose(g, seq_ref["grads"][i], **SEQ_GRAD_TOL):
+            seq_bad.append(f"d{name}")
+    print(f"sequence-sharded scan over 2 ranks at {SEQ_SHAPE} (B, L, K·D), fused kernel: max|diff| "
+          f"vs the one-device kernel {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (y fp32 "
+          f"{SEQ_TOL}, bf16 each element within 2^-8·|y_local| + 2^-7·|y| + "
+          f"{SEQ_TOL['atol']}, gradients {SEQ_GRAD_TOL}); outside: {seq_bad}; launches "
+          f"per rank {s0['launches']}")
+    if seq_bad or not s0["launches"]["selective_scan_fused"] or \
+            not s0["launches"]["selective_scan_fused_bwd"]:
+        failures.append("sequence-sharded scan")
+    report["seq"] = dict(max_abs_err=errs, outside=seq_bad, launches=s0["launches"])
+
+    # NCCL at world size 1: the dp step's collectives through NCCL.
+    init_distributed(0, 1, f"tcp://127.0.0.1:{cli._free_port()}", "cuda:0")
+    try:
+        nccl = par_chain(cfg, init, batches, mesh=Mesh(1, 1, 0, torch.distributed.group.WORLD))
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    nccl_ratio, nccl_rel, _ = losses_vs_control(nccl["losses"][0], ref["losses"][0],
+                                                ctrl["losses"][0])
+    nccl_worst = {m: grads_vs_control(nccl["grads"][m], ref["grads"][m], ctrl["grads"][m],
+                                      [str(i) for i in range(len(ref["grads"][m]))])[0]
+                  for m in ref["grads"]}
+    print(f"{backend} at world size 1, the dp step's all_reduce path: losses max rel "
+          f"{nccl_rel:.3e}, gradients worst vs control {nccl_worst}")
+    if backend != "nccl" or nccl_ratio > 1 or \
+            any(r > PAR_CONTROL_X for r in nccl_worst.values()):
+        failures.append("nccl world size 1")
+    report["nccl"] = dict(loss_rel=nccl_rel, worst_vs_control=nccl_worst)
+
+    cli_ok, report["cli"] = par_cli(smi)
+    if not cli_ok:
+        failures.append("cli MESH.DP 2")
+
+    step_ms = [statistics.median(got[r]["dp"]["step_ms"]) for r in range(PAR_RANKS)]
+    report.update(dp2_step_ms=step_ms, phase_s=time.perf_counter() - t_phase)
+    print(f"dp2 fp32 flagship GAN step, 2 rows a rank: median {step_ms[0]:.1f} / {step_ms[1]:.1f} "
+          f"ms (ranks 0 / 1, {PAR_TIMED} steps)  [{smi}]. Two processes time-slice one card "
+          f"over gloo: no measure of scaling.")
+    print(f"parallel phase {report['phase_s']:.1f} s (reference runs {ref_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s)  [{smi}]")
+    if failures:
+        raise AssertionError(f"parallel phase failed: {failures}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -2020,8 +2676,13 @@ def main() -> int:
     report["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = phase("build")
+    hold_proc, HOLD_LIB[0] = hold_build_start()
     built = build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, in parallel)")
+    if hold_proc is not None:
+        log, _ = hold_proc.communicate()
+        if hold_proc.returncode != 0:
+            raise RuntimeError(f"nvcc of the contention check's hold kernel failed:\n{log}")
     report["build_s"] = time.perf_counter() - t0
     # The host C++ library, which the data phases load; a failed build fails the run.
     report["host_build_s"] = native.build()
@@ -2098,6 +2759,11 @@ def main() -> int:
               f"{c['bytes'] / 1e6:.2f} MB)")
     report["kernel_checks"] = checks
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("look-back under contention: the one-launch scans while another kernel holds "
+               "all but a few SMs")
+    report["lookback_contention"] = lookback_contention(gen)
+    print(f"contention checked in {time.perf_counter() - t0:.1f} s  [{smi}]")
 
     t0 = phase("look-back window: device ms per train step (batch 4) and per batch-1 forward")
     sweep = window_sweep(gen)
@@ -2361,6 +3027,10 @@ def main() -> int:
     t0 = phase("raw corpus: host C++ library, FLAC decode, degradation, pipelines, then the "
                "flagship trained from a FLAC tree (DATA.PIPELINE grain) and --eval")
     report["raw_corpus"], raw_launches = raw_corpus_phase(smi)
+
+    t0 = phase("parallel: dp2 and dp1×mp2 on two ranks of cuda:0 over gloo, the "
+               "sequence-sharded fused scan, NCCL at world size 1 (flagship, fp32)")
+    report["parallel"] = parallel_phase(smi)
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served

@@ -202,15 +202,57 @@ def test_resumed_epoch_matches_jax(run, tmp_path):
 
 
 def _scale(log, key):
-    """What a log is held relative to: itself, except ``disc_gap/<name>``,
-    the mean over the sub-discriminators of mean D(real) − mean D(fake).
-    That is a difference of scores of the size of √(discriminator loss)
-    (~1.35 here) which cancels to ~3e-5 in this epoch, so fp32 rounding of
-    the scores alone moves it by ~1e-4 of itself (observed 1.05e-4, 2.8e-9
-    absolute); it is held relative to the scores' size instead. A fault in
-    the discriminator's weights or moments shows in ``discriminator/<name>``
-    and ``generator/adversarial_<name>``, held to 2e-5 of themselves."""
-    name = key.partition("/")[2]
-    if key.startswith("disc_gap/") and not name.endswith("_max"):
+    """What a log is held relative to: itself, except ``disc_gap/<name>``
+    and ``disc_gap/<name>_max``. Each sub-discriminator's gap is mean
+    D(real) − mean D(fake), a difference of two scores of the size of
+    √(discriminator loss) (~1.35 here) that cancels to ~1e-5..1e-4 in this
+    epoch; ``disc_gap/<name>`` is the gaps' mean and ``disc_gap/<name>_max``
+    their largest magnitude. fp32 rounding of the scores moves each gap by
+    a few ulps of the scores (~1e-7 of 1.35), so it moves their mean, and
+    their largest magnitude (which is one of the gaps), by as much: ~1e-4 of
+    the cancelled values themselves (observed 1.05e-4 for the mean, 2.8e-9
+    absolute, and 1.45e-4 for the max, 9.4e-9 absolute). Both are held
+    relative to the scores' size, √(discriminator loss), instead:
+    test_discriminator_scores_match_jax holds the scores themselves to
+    their fp32 rounding. A fault in the discriminator's weights or moments
+    shows in ``discriminator/<name>`` and ``generator/adversarial_<name>``,
+    held to 2e-5 of themselves."""
+    name = key.partition("/")[2].removesuffix("_max")
+    if key.startswith("disc_gap/"):
         return max(abs(log[key]), math.sqrt(log[f"discriminator/{name}"]))
     return abs(log[key])
+
+
+# Each sub-discriminator's mean score, the port's against JAX's from the
+# same weights and input: a few fp32 ulps of the scores' size (observed
+# SCORE_OBSERVED of it).
+SCORE_REL = 1e-6
+
+
+def test_discriminator_scores_match_jax(run):
+    """The scores the gaps are made of: the port's MPD from the JAX
+    epoch-0 checkpoint's variables, on the same real and fake batch as the
+    JAX MPD, each sub-discriminator's mean D(real) and mean D(fake) within
+    SCORE_REL of the scores' size, and so each gap, and the gaps' mean and
+    largest magnitude, within twice that."""
+    _, discs0 = run["epoch0"]
+    variables = {"params": discs0["mpd"].params, "batch_stats": discs0["mpd"].batch_stats}
+    cfg = _tiny(default_config(), run["tmp"] / "scores")
+    mpd = _port_models(cfg)["mpd"]
+    mpd.load_state_dict(flax_disc_variables_to_state_dict(variables), strict=True)
+    jmpd = get_model(_tiny(jax_default_config(), run["tmp"] / "scores"))["mpd"]
+    rng = np.random.default_rng(4)
+    real, fake = (0.3 * rng.standard_normal((4, 1, 2016))).astype(np.float32), \
+        (0.3 * rng.standard_normal((4, 1, 2016))).astype(np.float32)
+    y_r, y_g, _, _ = jax.jit(lambda v, a, b: jmpd.apply(v, a, b, update_stats=False))(
+        variables, real, fake)
+    with torch.no_grad():
+        p_r, p_g, _, _ = mpd(torch.from_numpy(real), torch.from_numpy(fake), update_stats=False)
+    ref = np.array([[float(np.mean(r)), float(np.mean(g))] for r, g in zip(y_r, y_g)])
+    got = np.array([[float(r.mean()), float(g.mean())] for r, g in zip(p_r, p_g)])
+    scale = np.abs(ref).max()
+    assert got.shape == ref.shape == (len(cfg.TRAIN.ADVERSARIAL.MPD_PERIODS), 2)
+    assert np.abs(got - ref).max() <= SCORE_REL * scale, (np.abs(got - ref).max() / scale)
+    gaps, ref_gaps = got[:, 0] - got[:, 1], ref[:, 0] - ref[:, 1]
+    assert np.abs(gaps - ref_gaps).max() <= 2 * SCORE_REL * scale
+    assert abs(np.abs(gaps).max() - np.abs(ref_gaps).max()) <= 2 * SCORE_REL * scale

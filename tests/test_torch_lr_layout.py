@@ -29,7 +29,7 @@ from vm_asr_tpu_torch.ops.lookback import lookback_smem
 SM_SMEM_BYTES = 233_472
 CTA_RESERVED_BYTES = 1_024
 BLOCK_SMEM_MAX = 232_448
-STATIC_SMEM = 256 * 8      # the kernel's `part`: one affine step per thread
+STATIC_SMEM = 256 * 8 + 4  # the kernel's `part` (one affine step per thread) and its ticket
 INT32_MAX = 2**31 - 1
 STEPS = 16                 # the kernel's segment
 FP32_TOL = 1e-4            # the bar of tests/test_fused_scan.py:29-30
@@ -81,7 +81,7 @@ def _check_layout(r, l, d, reverse):
     n_tiles = -(-l // (tile.segments * STEPS))
     slots = r * (d // tile.channels) * n_tiles
     assert slots <= INT32_MAX
-    assert lr_workspace_bytes(r, l, d, tile) == 24 * slots * tile.channels
+    assert lr_workspace_bytes(r, l, d, tile) == 24 * slots * tile.channels + 8
     return tile
 
 

@@ -305,7 +305,9 @@ def test_resume_from_latest(tmp_path):
 
 
 def test_data_parallel_refused(tmp_path):
+    """MESH.DP 2 in one process, outside a process group of two ranks: the
+    Trainer refuses, saying how to start the ranks."""
     cfg = _tiny(default_config(), tmp_path)
     cfg.MESH.DP = 2
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    with pytest.raises(ValueError, match="needs 2 ranks; 1 present"):
         PortTrainer(cfg, _port_models(cfg), *_loaders(cfg, DegradingSampler, DataPipeline))

@@ -18,6 +18,17 @@ run's ``*best*G*.pth`` (or its latest). Everything runs on the card unless
 becomes such a run folder with ``scripts/jax_checkpoint_to_pth.py``, on a
 machine with JAX. Training on VCTK reads the trimmed wav tree under
 DATA.DATA_PATH, converted from the raw FLAC corpus at first use.
+
+Training on several devices: ``--opts MESH.DP n`` with n > 1 starts n ranks
+(spawned processes, one card each, NCCL) and each trains on its share of
+every global batch of DATA.BATCH_SIZE; ``MESH.DP -1`` (the default) takes
+every card present, which on a one-card machine is one process and no
+process group. Where fewer cards are present than MESH.DP asks for, it
+raises. With ``--device cpu`` the n ranks run on the host over gloo. Under
+``torchrun`` (RANK and WORLD_SIZE set) each process joins torchrun's
+group as its rank, on card LOCAL_RANK. ``--eval``, ``--inference`` and
+``--throughput`` run in one process, as the JAX package's Tester and
+Inferencer do.
 """
 
 from __future__ import annotations
@@ -60,6 +71,55 @@ def parse_option(argv=None):
     return p.parse_args(argv)
 
 
+def train_ranks(mesh_dp: int, device) -> int:
+    """How many ranks a training run of MESH.DP ``mesh_dp`` starts on
+    ``device``'s type: on CUDA, -1 takes every card present and more cards
+    than are present raise; on the CPU, -1 is one rank and n is n ranks."""
+    import torch
+
+    if device.type != "cuda":
+        ranks = 1 if mesh_dp == -1 else int(mesh_dp)
+    else:
+        present = torch.cuda.device_count()
+        ranks = present if mesh_dp == -1 else int(mesh_dp)
+        if ranks > present:
+            raise ValueError(f"MESH.DP {ranks} needs {ranks} CUDA devices; {present} present")
+    if ranks < 1:
+        raise ValueError(f"MESH.DP must be -1 or at least 1, got {mesh_dp}")
+    return ranks
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(rank: int, ranks: int, init_method: str, argv, backend=None) -> None:
+    """One spawned rank of a data-parallel training run: on card ``rank``
+    over NCCL, or on the CPU over gloo. ``backend="gloo"`` with a CUDA
+    ``--device`` puts every rank on that one card instead (a harness that
+    runs the ranks of a run on one card)."""
+    import torch
+
+    from .core import get_config, resolve_device
+    from .parallel import init_distributed
+
+    args = parse_option(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and backend is None:
+        device = torch.device("cuda", rank)
+    if device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    init_distributed(rank, ranks, init_method, device, backend=backend)
+    try:
+        _run(args, get_config(args), device, "train")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def load_generator_weights(config, generator, logger) -> None:
     """Load the resume directory's ``*best*G*.pth``, else its
     ``checkpoint-latest-G.pth``; random init from SEED, with a warning, when
@@ -93,7 +153,8 @@ def _maybe_stack(config, generator, logger):
 
 def run(argv=None):
     """Parse ``argv`` and run its mode; returns (mode, result): the Trainer
-    after training, the Tester after ``--eval``, the Inferencer after
+    after training in this process, ``{"ranks": n}`` after a training run
+    of n spawned ranks, the Tester after ``--eval``, the Inferencer after
     ``--inference``, and the timing dict of ``--throughput``."""
     args = parse_option(argv)
     if args.inference:
@@ -105,16 +166,44 @@ def run(argv=None):
 
     import torch
 
-    from .core import create_logger, get_config, resolve_device
-    from .data import SyntheticVCTK, get_loaders
-    from .models import get_discriminators, get_generator
+    from .core import get_config, resolve_device
+    from .parallel import init_distributed
 
     config = get_config(args)
-    logger = create_logger(config.OUTPUT)
     device = resolve_device(args.device)
     mode = ("eval" if config.EVAL_MODE else "inference" if config.INFERENCE_MODE
             else "throughput" if config.THROUGHPUT_MODE else "train")
-    logger.info(f"Mode: {mode} on {device}")
+    if mode == "train" and not torch.distributed.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+            if device.type == "cuda":
+                device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            init_distributed(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://",
+                             device)
+            try:
+                return _run(args, config, device, mode)
+            finally:
+                torch.distributed.destroy_process_group()
+        ranks = train_ranks(config.MESH.DP, device)
+        if ranks > 1:
+            torch.multiprocessing.start_processes(
+                _rank_main, nprocs=ranks, start_method="spawn",
+                args=(ranks, f"tcp://127.0.0.1:{_free_port()}",
+                      list(sys.argv[1:] if argv is None else argv)))
+            return mode, {"ranks": ranks}
+    return _run(args, config, device, mode)
+
+
+def _run(args, config, device, mode):
+    import torch
+
+    from .core import create_logger
+    from .data import SyntheticVCTK, get_loaders
+    from .models import get_discriminators, get_generator
+    from .parallel import process_rank, world_size
+
+    logger = create_logger(config.OUTPUT)
+    logger.info(f"Mode: {mode} on {device}" +
+                (f", rank {process_rank()} of {world_size()}" if world_size() > 1 else ""))
 
     # Seeding (reference main.py:293-298); the models and the steps take
     # their own generators, seeded from SEED.
@@ -182,7 +271,9 @@ def run(argv=None):
     models = {"generator": generator, **get_discriminators(config, device)}
     logger.info(f"Models: {list(models)}")
     wandb_run = init_wandb_run(config, logger, resume=bool(config.MODEL.RESUME_PATH))
-    train_loader, valid_loader = get_loaders(config, logger, dataset=dataset)
+    train_loader, valid_loader = get_loaders(config, logger, dataset=dataset,
+                                             shard_index=process_rank(),
+                                             shard_count=world_size())
     trainer = Trainer(config, models, train_loader, valid_loader, logger)
     try:
         trainer.train()

@@ -12,6 +12,10 @@ value, so ``torch.load(weights_only=True)`` reads it, and so do the reference
 loaders (the JAX package's ``compat.torch_port.load_torch_checkpoint`` and
 the port's ``compat.load_reference_checkpoint``). A file is written under a
 temporary name and moved into place, so a reader never sees half of one.
+
+Under data parallelism every rank holds the same states: rank 0 writes, the
+other ranks' ``save`` writes nothing, and ``barrier`` holds every rank until
+rank 0's files are in place. Every rank reads (``restore``) for itself.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from .dist import process_rank, world_size
 
 
 class CheckpointManager:
@@ -44,7 +51,9 @@ class CheckpointManager:
     ) -> None:
         """Write `latest`, and copies as `best` and `epoch-N` when asked
         (reference base_trainer.py:130-179). ``state`` is a
-        ``train.GenState`` / ``DiscState``."""
+        ``train.GenState`` / ``DiscState``. Only rank 0 writes."""
+        if process_rank() != 0:
+            return
         blob = dict(state.state_dict(), epoch=int(epoch), monitor_best=float(monitor_best),
                     config=config)
         latest = self.path("latest", model_tag)
@@ -56,6 +65,13 @@ class CheckpointManager:
             shutil.copyfile(tmp, f"{dst}.tmp{os.getpid()}")
             os.replace(f"{dst}.tmp{os.getpid()}", dst)
         os.replace(tmp, latest)
+
+    @staticmethod
+    def barrier() -> None:
+        """Under a process group, wait until every rank is here (after rank
+        0's writes); a no-op in one process."""
+        if world_size() > 1:
+            dist.barrier()
 
     def load(self, model_tag: str, kind: str = "latest") -> Optional[Dict[str, Any]]:
         """The checkpoint's contents on the CPU, or None if there is none."""

@@ -3,14 +3,17 @@ vm_asr_tpu/core/wandb_utils.py; reference utils/utils.py:93-109).
 
 ``wandb`` is imported only when the config enables it. Where it is not
 installed, the run goes on without it after one warning, as the JAX package
-does: it is a logging extra, not part of the computation.
+does: it is a logging extra, not part of the computation. Under data
+parallelism only rank 0 starts a run.
 """
 
 from __future__ import annotations
 
+from .dist import process_rank
+
 
 def init_wandb_run(config, logger=None, resume: bool = False):
-    if not config.WANDB.ENABLE:
+    if not config.WANDB.ENABLE or process_rank() != 0:
         return None
     try:
         import wandb

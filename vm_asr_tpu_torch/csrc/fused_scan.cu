@@ -28,7 +28,8 @@
 // every flagship chunk (16 or 32 steps at batch 1 and 4, 64 at batch 8) is
 // one 16-step sub-tile per thread. Tiles are numbered with the L-tile
 // slowest: id = (tile * B + b) * n_groups + group. The kernel is persistent:
-// CTA i takes tiles i, i + gridDim.x, ... in order, and for each it
+// each CTA takes the next tile id from the look-back's ticket as it goes
+// (scan_common.cuh: take_tile), and for each it
 //   1. has the tile's u, dts, B and C in shared memory, loaded by cp.async
 //      while it walked the tile before (two buffers): 16-byte pieces of
 //      contiguous channels and one piece per row of B and C (plain loads where
@@ -296,7 +297,7 @@ __device__ __forceinline__ float walk_out(float h, const float (&av)[kSteps],
   return h;
 }
 
-// Where tile `id` (blockIdx order: the L-tile slowest) lies.
+// Where tile `id` (ticket order: the L-tile slowest) lies.
 struct TileAt {
   size_t b;     // batch row
   int jt;       // L-tile
@@ -312,8 +313,9 @@ __device__ __forceinline__ TileAt tile_at(const FwdArgs& args, const FwdTile& ti
           (size_t)chain * tile.n_tiles};
 }
 
-// Persistent: CTA i takes tiles i, i + gridDim.x, ... in order, with the
-// next tile's loads in flight while it walks the current one. kG > 0: the
+// Persistent: each CTA takes tile ids from the ticket (scan_common.cuh:
+// take_tile), with the next tile's loads in flight while it walks the
+// current one. kG > 0: the
 // group is kG channels and K = 4, known to the compiler, so that the
 // shared-memory offsets of the walks are immediates (the flagship's
 // stages); kG = 0: any group and K, from tile and args.
@@ -338,17 +340,24 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
   const int seg = live ? tid / G : 0;
   const int g = live ? tid - seg * G : 0;
 
-  int id = blockIdx.x;
-  {
+  __shared__ int ticket;  // the tile id thread 0 took for the CTA
+  if (tid == 0) ticket = take_tile(lb);
+  __syncthreads();
+  int id = ticket;
+  if (id < total) {
     const TileAt at = tile_at(args, tile, id);
     stage_async<T, kG>(args, tile, buffer(0), at.b, at.jt * tile.C * args.chunk, 0, at.c0);
     cp_async_commit();
   }
-  for (int n = 0; id < total; id += gridDim.x, ++n) {
+  for (int n = 0; id < total; ++n) {
     const Buf<T> buf = buffer(n & 1);
     const TileAt at = tile_at(args, tile, id);
-    if ((long long)id + gridDim.x < total) {
-      const TileAt next = tile_at(args, tile, id + gridDim.x);
+    __syncthreads();  // every thread has read the ticket
+    if (tid == 0) ticket = take_tile(lb);
+    __syncthreads();
+    const int next_id = ticket;
+    if (next_id < total) {
+      const TileAt next = tile_at(args, tile, next_id);
       stage_async<T, kG>(args, tile, buffer((n + 1) & 1), next.b,
                          next.jt * tile.C * args.chunk, 0, next.c0);
       cp_async_commit();
@@ -423,6 +432,7 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
       store_y<T, kG>(args, tile, buf, at.b, t_tile, j, at.c0);
     }
     __syncthreads();  // before the buffer takes the tile after next, and part the next
+    id = next_id;
   }
 }
 

@@ -24,8 +24,9 @@
 // else the largest divisor of D up to 64, so D = 8 is one group of 8). Each
 // thread takes one (16-step segment, channel); a tile is as many segments as
 // 256 threads hold (512 steps at G = 8, 128 at G = 32). Tiles are numbered
-// with the L-tile slowest, the reverse's from the last L-tile, and CTA i
-// takes tiles i, i + gridDim.x, ... in order. For each it
+// with the L-tile slowest, the reverse's from the last L-tile, and each CTA
+// takes the next tile id from the look-back's ticket as it goes
+// (scan_common.cuh: take_tile). For each it
 //   1. has the tile's a and b (reverse: a, g, and h shifted by one step, so
 //      that a row holds h_{t-1}) in shared memory, loaded by cp.async
 //      16-byte pieces while it walked the tile before (two buffers; plain
@@ -238,21 +239,28 @@ lr_scan_kernel(LrArgs args, LrTile tile, LookBack lb) {
   const int seg = live ? tid / G : 0;
   const int g = live ? tid - seg * G : 0;
 
-  int id = blockIdx.x;
-  {
+  __shared__ int ticket;  // the tile id thread 0 took for the CTA
+  if (tid == 0) ticket = take_tile(lb);
+  __syncthreads();
+  int id = ticket;
+  if (id < total) {
     float* x[kArrays];
     buffer(0, x);
     stage<kG, kArrays>(args, tile, x, src, tile_at<kReverse>(args, tile, id));
     cp_async_commit();
   }
-  for (int n = 0; id < total; id += gridDim.x, ++n) {
+  for (int n = 0; id < total; ++n) {
     float* x[kArrays];
     buffer(n & 1, x);
     const TileAt at = tile_at<kReverse>(args, tile, id);
-    if ((long long)id + gridDim.x < total) {
+    __syncthreads();  // every thread has read the ticket
+    if (tid == 0) ticket = take_tile(lb);
+    __syncthreads();
+    const int next_id = ticket;
+    if (next_id < total) {
       float* y[kArrays];
       buffer((n + 1) & 1, y);
-      stage<kG, kArrays>(args, tile, y, src, tile_at<kReverse>(args, tile, id + gridDim.x));
+      stage<kG, kArrays>(args, tile, y, src, tile_at<kReverse>(args, tile, next_id));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -338,6 +346,7 @@ lr_scan_kernel(LrArgs args, LrTile tile, LookBack lb) {
       store<kG, 1>(args, tile, out, dst, at);
     }
     __syncthreads();  // before the buffer takes the tile after next, and part the next
+    id = next_id;
   }
 }
 

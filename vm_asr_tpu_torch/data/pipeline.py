@@ -8,6 +8,13 @@ and random-rate degradation).
   DataLoader workers. Item j of batch bi draws from
   ``default_rng([base_seed, bi·B + j])``, and an epoch's order from
   ``default_rng(seed + epoch)``, so batches are bitwise the JAX package's.
+- Under data parallelism each rank reads its share of every global batch
+  (``shard_index`` = its rank, ``shard_count`` = dp, ``batch_size`` the
+  per-rank batch B): global batch bi holds positions bi·B·k .. (bi+1)·B·k − 1
+  of the epoch's order, the same items a single process reads at batch B·k,
+  and rank s takes its rows s·B .. s·B + B − 1 (``epoch_shard``). An item's
+  randomness is keyed by its position in the epoch, so the shards together
+  are bitwise the one process's batch.
 - Every training batch has the same shape (SEGMENT seconds at TARGET_SR).
 - A thread pool overlaps the degradation (the host C++ library, scipy for
   what it does not take) with the device's work. The threads touch numpy
@@ -33,6 +40,7 @@ import torch
 
 from ..dsp.audio import resample_audio
 from ..dsp.degrade import degrade
+from ..core.dist import process_rank
 
 
 @dataclass
@@ -150,13 +158,46 @@ def epoch_base_seed(seed: int, epoch: int) -> int:
     return (seed * 1_000_003 + epoch) % (2**31)
 
 
+def check_shard(shard_index: int, shard_count: int, drop_last: bool) -> None:
+    if not 0 <= shard_index < shard_count:
+        raise ValueError(f"shard_index {shard_index} not in [0, {shard_count})")
+    if shard_count > 1 and not drop_last:
+        raise ValueError("a sharded pipeline drops the last partial global batch: "
+                         "drop_last must be True")
+
+
+def shard_len(n: int, batch_size: int, shard_count: int, drop_last: bool) -> int:
+    """Batches of one shard in an epoch of ``n`` items (one per global batch)."""
+    g = batch_size * shard_count
+    return n // g if drop_last else -(-n // g)
+
+
+def epoch_shard(order: Sequence[int], batch_size: int, shard_index: int, shard_count: int,
+                drop_last: bool) -> Tuple[List[List[int]], List[List[int]]]:
+    """(members, positions) of each of one shard's batches in an epoch of
+    ``order``: rows ``shard_index·B ..`` of each global batch of B·k items."""
+    b, g = batch_size, batch_size * shard_count
+    members, positions = [], []
+    for bi in range(shard_len(len(order), b, shard_count, drop_last)):
+        lo = bi * g + shard_index * b
+        pos = list(range(lo, min(lo + b, len(order))))
+        members.append([order[p] for p in pos])
+        positions.append(pos)
+    return members, positions
+
+
 class DataPipeline:
     """Shuffled, threaded, fixed-shape batch iterator."""
 
     def __init__(self, sampler: DegradingSampler, batch_size: int,
                  indices: Optional[Sequence[int]] = None, shuffle: bool = True,
                  seed: int = 123, num_workers: int = 4, drop_last: bool = True,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard_index: int = 0, shard_count: int = 1):
+        """``batch_size``: this shard's batch; ``shard_index`` /
+        ``shard_count``: its share of each global batch (module docstring)."""
+        check_shard(shard_index, shard_count, drop_last)
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self.sampler = sampler
         self.batch_size = batch_size
         self.indices = list(indices if indices is not None else range(len(sampler.dataset)))
@@ -168,22 +209,19 @@ class DataPipeline:
         self._epoch = 0
 
     def __len__(self) -> int:
-        n, b = len(self.indices), self.batch_size
-        return n // b if self.drop_last else -(-n // b)
+        return shard_len(len(self.indices), self.batch_size, self.shard_count, self.drop_last)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
     def __iter__(self) -> Iterator[Batch]:
         idx = epoch_order(self.indices, self.shuffle, self.seed, self._epoch)
-        if self.drop_last:
-            idx = idx[: len(self) * self.batch_size]
-        batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        batches, positions = epoch_shard(idx, self.batch_size, self.shard_index,
+                                         self.shard_count, self.drop_last)
         base_seed = epoch_base_seed(self.seed, self._epoch)
 
         def make_batch(bi: int, members: List[int]) -> Batch:
-            return build_batch(self.sampler, members, base_seed,
-                               range(bi * self.batch_size, bi * self.batch_size + len(members)))
+            return build_batch(self.sampler, members, base_seed, positions[bi])
 
         # At most num_workers + prefetch batches are submitted and not yet
         # handed over: one more is submitted as each is yielded, so a long
@@ -213,14 +251,6 @@ def train_valid_split(n: int, valid_split: float, seed: int = 42
     return list(perm[n_valid:]), list(perm[:n_valid])
 
 
-def process_rank() -> int:
-    """This process's rank in the initialised torch.distributed process
-    group, else 0."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank()
-    return 0
-
-
 def ensure_wav_tree(config, logger=None) -> str:
     """The trimmed wav tree DATA_PATH/FLAC2WAV.DST_PATH, converted from
     DATA_PATH/VCTK-Corpus-0.92/wav48_silence_trimmed when it is missing
@@ -235,7 +265,7 @@ def ensure_wav_tree(config, logger=None) -> str:
     from .vctk import convert_flac_corpus
 
     done_marker = root.rstrip("/") + ".converted"
-    if process_rank() == 0:
+    if process_rank() == 0:  # under the process group the CLI's ranks join
         if logger:
             logger.info(f"Trimmed wav files not found; converting flac to wav "
                         f"({flac_root} -> {root})")
@@ -249,14 +279,22 @@ def ensure_wav_tree(config, logger=None) -> str:
     return root
 
 
-def get_loaders(config, logger=None, dataset=None):
+def get_loaders(config, logger=None, dataset=None, shard_index: int = 0,
+                shard_count: int = 1):
     """Loader factory (reference data_loaders.py:25-79).
 
     Returns (train pipeline, valid pipeline) in training mode, or one test
     pipeline in eval mode: ``DataPipeline`` (threads), or ``WorkerPipeline``
     (worker processes) under DATA.PIPELINE grain. ``dataset`` may be given
     (e.g. SyntheticVCTK); otherwise it is the trimmed VCTK wav tree under
-    DATA.DATA_PATH, converted from the raw FLAC corpus first if needed."""
+    DATA.DATA_PATH, converted from the raw FLAC corpus first if needed.
+
+    ``shard_index`` / ``shard_count``: a rank of a data-parallel run (its
+    rank, dp). Its training pipeline reads its DATA.BATCH_SIZE / dp rows of
+    each global batch of DATA.BATCH_SIZE; where DATA.BATCH_SIZE does not
+    divide over dp, every rank reads whole batches (the Trainer then
+    replicates them, with a warning). The validation pipeline reads whole
+    batches on every rank, which the Trainer shards."""
     from .vctk import VCTKDataset
     from .worker_pipeline import WorkerPipeline
 
@@ -278,7 +316,12 @@ def get_loaders(config, logger=None, dataset=None):
         tr_idx, va_idx = train_valid_split(len(dataset), config.DATA.VALID_SPLIT)
         common = dict(batch_size=config.DATA.BATCH_SIZE, seed=config.SEED,
                       num_workers=config.DATA.NUM_WORKERS)
-        train = pipeline_cls(sampler, indices=tr_idx, shuffle=config.DATA.SHUFFLE, **common)
+        shards = {}
+        if shard_count > 1 and config.DATA.BATCH_SIZE % shard_count == 0:
+            shards = dict(shard_index=shard_index, shard_count=shard_count,
+                          batch_size=config.DATA.BATCH_SIZE // shard_count)
+        train = pipeline_cls(sampler, indices=tr_idx, shuffle=config.DATA.SHUFFLE,
+                             **{**common, **shards})
         valid = pipeline_cls(sampler, indices=va_idx, shuffle=False, **common)
         if logger:
             logger.info(f"Data: {len(tr_idx)} train / {len(va_idx)} valid samples")

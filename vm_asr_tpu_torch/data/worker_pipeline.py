@@ -11,12 +11,13 @@ batches, so the degradation (C++ and scipy) runs outside the parent's GIL.
 Randomness is the threads pipeline's, not grain's (whose streams depend on
 grain's internals): the epoch's order comes from ``default_rng(seed +
 epoch)``, and the item at position p of the epoch draws from
-``default_rng([base_seed, p])``. Shard s of k takes positions s, s + k,
-s + 2k, ... of the shuffled order, ``n // k`` records each, disjoint across
-shards as long as every host passes the same seed; item j of its batch bi
-sits at position (bi·B + j)·k + s. At ``shard_count`` 1 that is bi·B + j,
-so the batches are bitwise those of ``DataPipeline``, and so of the JAX
-package's ``DataPipeline``.
+``default_rng([base_seed, p])``. Shard s of k takes rows s·B .. s·B + B − 1
+of each global batch of B·k items (``pipeline.epoch_shard``): item j of its
+batch bi sits at position (bi·k + s)·B + j, disjoint across shards as long
+as every host passes the same seed, and the shards of a global batch are
+together the batch one process reads at batch B·k, bitwise. At
+``shard_count`` 1 that is bi·B + j, so the batches are bitwise those of
+``DataPipeline``, and so of the JAX package's ``DataPipeline``.
 
 Workers are forked, and touch numpy and the host C++ library only (the
 DataLoader's worker loop sets one torch thread each): no CUDA call is made
@@ -32,7 +33,16 @@ from typing import Iterator, List, Optional, Sequence
 
 import torch
 
-from .pipeline import Batch, DegradingSampler, build_batch, epoch_base_seed, epoch_order
+from .pipeline import (
+    Batch,
+    DegradingSampler,
+    build_batch,
+    check_shard,
+    epoch_base_seed,
+    epoch_order,
+    epoch_shard,
+    shard_len,
+)
 
 
 def _as_is(batch: Batch) -> Batch:
@@ -66,8 +76,7 @@ class WorkerPipeline:
                  prefetch: int = 2, shard_index: int = 0, shard_count: int = 1):
         """``batch_size`` is the per-host batch; ``prefetch`` the batches
         each worker builds ahead."""
-        if not 0 <= shard_index < shard_count:
-            raise ValueError(f"shard_index {shard_index} not in [0, {shard_count})")
+        check_shard(shard_index, shard_count, drop_last)
         self.sampler = sampler
         self.batch_size = batch_size
         self.indices = list(indices if indices is not None else range(len(sampler.dataset)))
@@ -81,22 +90,16 @@ class WorkerPipeline:
         self._epoch = 0
 
     def __len__(self) -> int:
-        n, b = len(self.indices) // self.shard_count, self.batch_size
-        return n // b if self.drop_last else -(-n // b)
+        return shard_len(len(self.indices), self.batch_size, self.shard_count, self.drop_last)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
     def _epoch_batches(self) -> _EpochBatches:
-        k, s, b = self.shard_count, self.shard_index, self.batch_size
         order = epoch_order(self.indices, self.shuffle, self.seed, self._epoch)
-        n = len(order) // k
-        if self.drop_last:
-            n = len(self) * b
-        mine = order[s:n * k:k]
-        positions = [m * k + s for m in range(n)]
-        return _EpochBatches(self.sampler, [mine[i:i + b] for i in range(0, n, b)],
-                             [positions[i:i + b] for i in range(0, n, b)],
+        members, positions = epoch_shard(order, self.batch_size, self.shard_index,
+                                         self.shard_count, self.drop_last)
+        return _EpochBatches(self.sampler, members, positions,
                              epoch_base_seed(self.seed, self._epoch))
 
     def __iter__(self) -> Iterator[Batch]:

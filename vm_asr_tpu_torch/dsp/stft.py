@@ -30,21 +30,25 @@ def stft(
     """Complex one-sided spectrum ``(..., n_fft // 2 + 1, frames)`` of a real
     signal ``(..., T)``: periodic Hann window of ``win_length`` (default
     ``n_fft``), centre-padded to ``n_fft`` when shorter, ``center=True``
-    reflect padding, frames taken in x's float dtype."""
+    reflect padding, frames taken in x's float dtype.
+
+    On the card each signal is its own transform: cuFFT rounds a batch of
+    other size differently (2.7e-7 of the largest |S| between batch 2 and
+    4), and the generator turns that into O(1), where the phase of a bin
+    near ±π flips sign and where log2 takes an empty band's rounding, so a
+    signal's spectrum must not depend on the batch it came in (data
+    parallelism splits batches, serving pads them to bucket sizes). The
+    CPU's FFT gives the same bits at any batch size."""
     win_length = win_length or n_fft
     lead = x.shape[:-1]
-    spec = torch.stft(
-        x.reshape(-1, x.shape[-1]),
-        n_fft=n_fft,
-        hop_length=hop_length,
-        win_length=win_length,
-        window=hann_window(win_length, x.device).to(x.dtype),
-        center=True,
-        pad_mode="reflect",
-        normalized=normalized,
-        onesided=True,
-        return_complex=True,
-    )
+    rows = x.reshape(-1, x.shape[-1])
+    kwargs = dict(n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+                  window=hann_window(win_length, x.device).to(x.dtype), center=True,
+                  pad_mode="reflect", normalized=normalized, onesided=True, return_complex=True)
+    if rows.is_cuda and rows.shape[0] > 1:
+        spec = torch.cat([torch.stft(r, **kwargs) for r in rows.split(1)])
+    else:
+        spec = torch.stft(rows, **kwargs)
     return spec.reshape(lead + spec.shape[-2:])
 
 

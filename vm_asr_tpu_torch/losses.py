@@ -42,9 +42,24 @@ def _stft_mag(x: torch.Tensor, fft_size: int, hop_size: int, win_length: int,
     return mag
 
 
-def spectral_convergence_loss(x_mag: torch.Tensor, y_mag: torch.Tensor) -> torch.Tensor:
-    """‖Y − X‖_F / ‖Y‖_F."""
-    return torch.linalg.norm((y_mag - x_mag).flatten()) / torch.linalg.norm(y_mag.flatten())
+def spectral_convergence_loss(x_mag: torch.Tensor, y_mag: torch.Tensor,
+                              group=None) -> torch.Tensor:
+    """‖Y − X‖_F / ‖Y‖_F over the whole batch.
+
+    With ``group`` (the mesh's dp group) each rank holds its rows of the
+    batch: the squared norms are summed over the group, with autograd,
+    before the ratio, so that every rank gets the global batch's value (a
+    mean over ranks of per-rank ratios is another loss, with another
+    gradient). The sum's backward sums over the group too, so that after
+    the step averages the gradients over dp each rank's rows carry the
+    global loss's gradient."""
+    if group is None:
+        return torch.linalg.norm((y_mag - x_mag).flatten()) / torch.linalg.norm(y_mag.flatten())
+    from .parallel import all_reduce
+
+    sq = torch.stack([(y_mag - x_mag).square().sum(), y_mag.square().sum()])
+    num, den = all_reduce(sq, group).unbind(0)
+    return torch.sqrt(num) / torch.sqrt(den)
 
 
 def log_stft_magnitude_loss(x_mag: torch.Tensor, y_mag: torch.Tensor) -> torch.Tensor:
@@ -54,10 +69,13 @@ def log_stft_magnitude_loss(x_mag: torch.Tensor, y_mag: torch.Tensor) -> torch.T
 
 def stft_loss(x: torch.Tensor, y: torch.Tensor, fft_size: int = 1024,
               shift_size: int = 120, win_length: int = 600,
-              emphasize_high_freq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              emphasize_high_freq: bool = False, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(spectral convergence over the global batch (``group``: the dp
+    group), log-STFT magnitude loss, a mean over equal shards)."""
     x_mag = _stft_mag(x, fft_size, shift_size, win_length, emphasize_high_freq)
     y_mag = _stft_mag(y, fft_size, shift_size, win_length, emphasize_high_freq)
-    return spectral_convergence_loss(x_mag, y_mag), log_stft_magnitude_loss(x_mag, y_mag)
+    return (spectral_convergence_loss(x_mag, y_mag, group),
+            log_stft_magnitude_loss(x_mag, y_mag))
 
 
 def multi_resolution_stft_loss(
@@ -69,12 +87,14 @@ def multi_resolution_stft_loss(
     factor_sc: float = 0.5,
     factor_mag: float = 0.5,
     emphasize_high_freq: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ParallelWaveGAN-style multi-resolution STFT loss on (B, T) waveforms.
-    Returns (sc_loss, mag_loss), already scaled by their factors."""
+    Returns (sc_loss, mag_loss), already scaled by their factors; ``group``
+    as in ``stft_loss``."""
     sc_total, mag_total = 0.0, 0.0
     for fs, hs, wl in zip(fft_sizes, hop_sizes, win_lengths):
-        sc, mag = stft_loss(x, y, fs, hs, wl, emphasize_high_freq)
+        sc, mag = stft_loss(x, y, fs, hs, wl, emphasize_high_freq, group)
         sc_total = sc_total + sc
         mag_total = mag_total + mag
     k = len(fft_sizes)

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.context import rand_rows
+
 # flax truncated_normal(stddev=0.02, lower=-2, upper=2): stddev is that of the
 # truncated law, so the underlying normal is wider by 1/0.8796.
 _TRUNC_STD = 0.02 / 0.87962566103423978
@@ -173,7 +175,8 @@ class DropPath(nn.Module):
 
     The mask is drawn from ``generator``, a ``torch.Generator`` on x's device,
     never from the global RNG: training-mode calls with rate > 0 raise
-    without one."""
+    without one. Under data parallelism it is drawn for the global batch and
+    cut to this rank's rows (``parallel.rand_rows``)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -187,8 +190,7 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in training mode draws from an explicit "
                              "torch.Generator; pass generator=")
         keep = 1.0 - self.rate
-        draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                          device=x.device)
+        draw = rand_rows((x.shape[0],) + (1,) * (x.dim() - 1), generator, x.device)
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
@@ -212,7 +214,7 @@ class Dropout(nn.Module):
             raise ValueError("Dropout in training mode draws from an explicit "
                              "torch.Generator; pass generator=")
         keep = 1.0 - self.rate
-        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        draw = rand_rows(x.shape, generator, x.device)
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 

@@ -6,6 +6,16 @@
     → selective scan (fp32 maths, CUDA kernels)
     → cross-merge → LayerNorm → · SiLU(z) → out_proj → dropout
 
+Under an activation mesh with mp > 1 (``parallel.set_activation_mesh``),
+each rank of an ``mp`` group keeps its K/mp directions after the cross-scan,
+applies its slices of ``x_proj_weight``, ``dt_projs_weight``,
+``dt_projs_bias``, ``A_logs`` and ``Ds``, scans them, and gathers ``y`` over
+``mp`` before the cross-merge (the JAX package's shard_map over K). The
+slicing (``parallel.split``) gathers its gradients in the backward, and the
+gather (``parallel.gather``) keeps the rank's slice of its gradient, so that
+every parameter's gradient, K-sliced or replicated, comes out whole and
+alike on every rank of the group.
+
 Parameters keep the reference's layouts: stacked-K ``x_proj_weight
 (K, R+2N, D)``, ``dt_projs_weight (K, D, R)``, ``dt_projs_bias (K, D)``,
 ``A_logs (K·D, N)``, ``Ds (K·D,)``.
@@ -20,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import cross_merge, cross_scan, selective_scan
+from ..parallel import gather, mp_mesh, split
 from .layers import DepthwiseConv2d, Dropout, LayerNorm, Linear, get_activation, uniform_
 
 
@@ -106,16 +117,26 @@ class SS2D(nn.Module):
         xs2d = self.act(self.conv2d(xs2d))
 
         xs = cross_scan(xs2d)  # (B, L, K, D)
-        x_dbl = torch.einsum("blkd,kcd->blkc", xs, self.x_proj_weight.to(xs.dtype))
+        x_proj, dt_proj, dt_bias = self.x_proj_weight, self.dt_projs_weight, self.dt_projs_bias
+        a_logs, ds = self.A_logs.reshape(k, d, n), self.Ds.reshape(k, d)
+        mesh = mp_mesh()
+        split_k = mesh is not None and k % mesh.mp == 0
+        if split_k:
+            group = mesh.mp_group
+            xs, x_proj, dt_proj, dt_bias, a_logs, ds = (
+                split(t, 0 if t.dim() < 4 else 2, group)
+                for t in (xs, x_proj, dt_proj, dt_bias, a_logs, ds))
+        x_dbl = torch.einsum("blkd,kcd->blkc", xs, x_proj.to(xs.dtype))
         dts, bs, cs = torch.split(x_dbl, [r, n, n], dim=-1)
-        dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight.to(dts.dtype))
+        dts = torch.einsum("blkr,kdr->blkd", dts, dt_proj.to(dts.dtype))
 
-        a = -torch.exp(self.A_logs.float()).reshape(k, d, n)
         y = selective_scan(
-            xs, dts, a, bs, cs, self.Ds.reshape(k, d), self.dt_projs_bias,
+            xs, dts, -torch.exp(a_logs.float()), bs, cs, ds, dt_bias,
             delta_softplus=True, fp32_io=self.scan_fp32_io, impl=self.scan_impl,
-            checkpointed=self.checkpointed,
+            checkpointed=self.checkpointed, lanes=k * d,
         )
+        if split_k:
+            y = gather(y, 2, mesh.mp_group)
         y = self.out_norm(cross_merge(y, h, w))
         y = y.reshape(b, h, w, d).to(x.dtype)
         return self.dropout(self.out_proj(y * z), generator)

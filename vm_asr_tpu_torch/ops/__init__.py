@@ -10,6 +10,7 @@ from .linear_recurrence import (
     linear_recurrence_reverse_plain,
 )
 from .scan_api import selective_scan
+from .seq_scan import seq_sharded_selective_scan
 from .selective_scan_fused import (
     fused_chunk_states_plain,
     selective_scan_fused,
@@ -36,5 +37,6 @@ __all__ = [
     "selective_scan_fused_fwd",
     "selective_scan_fused_plain",
     "selective_scan_ref",
+    "seq_sharded_selective_scan",
     "softplus",
 ]

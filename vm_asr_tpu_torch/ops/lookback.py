@@ -15,7 +15,9 @@ Python).
 
 The words live in one workspace per (device, stream), tagged with a per-call
 epoch (1 to 2^30 − 1), so it is zeroed only when it is made or grown and no
-kernel clears it.
+kernel clears it. One more word holds the tile ticket: CTAs take tile ids in
+the order they ask, so the look-back never waits on a CTA that is not
+resident, whatever else holds the card's SMs.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ def lookback_workspace(device, stream: int, nbytes: int):
 def lookback_work_bytes(slots: int, channels: int) -> int:
     """Bytes of the look-back's words for ``slots`` tiles of ``channels``
     channels: per channel the tile's P and S and its inclusive prefix, 8
-    bytes each (the value and its epoch)."""
-    return 24 * slots * channels
+    bytes each (the value and its epoch), and the 8-byte tile ticket."""
+    return 24 * slots * channels + 8
 
 
 def lookback_smem(channels: int, window: int) -> int:

@@ -55,11 +55,16 @@ def selective_scan(
     fp32_io: bool = False,
     impl: str = "kernel",
     checkpointed: bool = False,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """Returns y: (B, L, K, D) in u's dtype; scan maths in fp32 (fp64 for
     ``impl="plain64"``). ``checkpointed``: the call runs inside a selective
     activation checkpoint, so the kernel route takes the dispatcher ops of
-    ``SCAN_OUTPUT_OPS``, whose outputs the checkpoint's policy keeps."""
+    ``SCAN_OUTPUT_OPS``, whose outputs the checkpoint's policy keeps.
+    ``lanes``: the K·D the route is chosen by, when this call scans one
+    rank's share of the directions (the ``mp`` split, models/ss2d.py): the
+    global width, as the JAX package insists, so that splitting a stage
+    does not move its shares off the fused kernel."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if fp32_io:
@@ -78,7 +83,7 @@ def selective_scan(
         and dt_bias is not None
         # Narrow heads (K·D = 64, 8) take the recurrence kernel, as in the
         # JAX package, which keeps the fused kernel to lane-dense widths.
-        and k * d >= 128
+        and (lanes or k * d) >= 128
     ):
         fused = functools.partial(selective_scan_fused, as_op=checkpointed) \
             if impl == "kernel" else selective_scan_fused_plain

@@ -10,7 +10,16 @@ Quirks kept from the reference:
 - Any NaN or Inf in an epoch's log ends the run with ``SystemExit(1)``
   (base_trainer.py:223-231).
 
-One device: the models' own. The step's metrics stay on the device; they
+One device per rank: the models' own. Under data parallelism (MESH.DP > 1,
+ranks started by the CLI or torchrun) the Trainer builds the (dp, 1) mesh,
+broadcasts rank 0's states to every rank, and gives the step each rank's
+rows of every global batch: the training pipeline's own shard (its
+``shard_index`` / ``shard_count``), or rows cut from whole batches by
+``parallel.shard_batch`` (validation, and a pipeline that reads whole
+batches). The schedule counts global steps (one per global batch). Only rank
+0 writes logs, TensorBoard, checkpoints, profiles and ``timings``; every
+rank reads the checkpoints on resume. The step's metrics stay on the
+device; they
 are fetched at PRINT_FREQ and at the epoch's end, so the host does not wait
 for the card on every step. ``timings`` holds each epoch's host-clock
 figures (seconds per step from one step's start to the next's, the time the
@@ -35,6 +44,7 @@ from ..core.profiling import count_params
 from ..core.tracker import MetricTracker
 from ..core.visualization import TensorboardWriter
 from ..data.pipeline import batch_to_device
+from ..parallel import make_mesh, process_rank, replicate_state, shard_batch
 from .optim import make_optimizer
 from .states import DiscState, GenState
 from .steps import make_eval_step, make_train_step
@@ -76,14 +86,14 @@ def _busy_ms(events) -> float:
 class Trainer:
     """Trains ``models`` ({"generator": module, discriminator name: module})
     as given, on the generator's device. The train and eval steps are the
-    port's ``make_train_step`` / ``make_eval_step``."""
+    port's ``make_train_step`` / ``make_eval_step``, over the mesh
+    ``make_mesh(config.MESH.DP)``, which raises when MESH.DP asks for more
+    ranks than the process group holds."""
 
     def __init__(self, config, models: Dict[str, torch.nn.Module], train_loader,
                  valid_loader=None, logger=None):
-        if config.MESH.DP > 1:
-            raise NotImplementedError(
-                f"MESH.DP {config.MESH.DP}: data parallelism is not ported yet "
-                "(ROADMAP queue A: parallelism); the port trains on one device")
+        self.mesh = make_mesh(config.MESH.DP)
+        self.rank0 = process_rank() == 0
         self.config = config
         self.generator = models["generator"]
         self.discriminators = {k: v for k, v in models.items() if k != "generator"}
@@ -92,7 +102,8 @@ class Trainer:
         self.valid_loader = valid_loader
         self.logger = logger or create_logger(config.OUTPUT)
         self.writer = TensorboardWriter(
-            os.path.join(config.OUTPUT, "tb"), self.logger, enabled=config.TENSORBOARD.ENABLE)
+            os.path.join(config.OUTPUT, "tb"), self.logger,
+            enabled=config.TENSORBOARD.ENABLE and self.rank0)
         self.ckpt = CheckpointManager(config.OUTPUT)
 
         # Monitor (reference base_trainer.py:40-60).
@@ -111,12 +122,17 @@ class Trainer:
         self.disc_states = {name: DiscState(d, make_optimizer(config, steps_per_epoch, d))
                             for name, d in sorted(self.discriminators.items())}
         self.logger.info(f"Generator params: {count_params(self.generator) / 1e6:.3f} M "
-                         f"on {self.device}")
+                         f"on {self.device}, mesh dp {self.mesh.dp}")
+        for state in [self.gen_state, *self.disc_states.values()]:
+            replicate_state(state)
         if config.TRAIN.AUTO_RESUME or config.MODEL.RESUME_PATH:
             self._try_resume()
 
-        self.train_step = make_train_step(config, self.generator, self.discriminators)
-        self.eval_step = make_eval_step(config, self.generator)
+        self.train_step = make_train_step(config, self.generator, self.discriminators,
+                                          mesh=self.mesh)
+        self.eval_step = make_eval_step(config, self.generator, mesh=self.mesh)
+        # The epoch's artifacts are rank 0's alone: a forward of its own rows.
+        self.local_eval_step = make_eval_step(config, self.generator)
         self.train_metrics, self.valid_metrics = MetricTracker(), MetricTracker()
 
     def _try_resume(self):
@@ -137,7 +153,8 @@ class Trainer:
         for epoch in range(self.start_epoch, self.config.TRAIN.EPOCHS):
             t_epoch = time.perf_counter()
             timing = {"epoch": epoch}
-            self.timings.append(timing)
+            if self.rank0:
+                self.timings.append(timing)
             log = self._train_epoch(epoch, timing)
             if self.valid_loader is not None:
                 t0 = time.perf_counter()
@@ -170,6 +187,7 @@ class Trainer:
 
             t0 = time.perf_counter()
             self._save(epoch, best)
+            self.ckpt.barrier()
             timing["save_ms"] = (time.perf_counter() - t0) * 1e3
             timing["epoch_s"] = time.perf_counter() - t_epoch
             self.logger.info(f"Epoch {epoch} timing {json.dumps(timing)}")
@@ -183,6 +201,23 @@ class Trainer:
                        epoch_copy=epoch_copy)
         for name, state in self.disc_states.items():
             self.ckpt.save(name, state, epoch, self.mnt_best, best=best, epoch_copy=epoch_copy)
+
+    def _shard(self, batch, loader) -> Dict[str, Any]:
+        """This rank's share of ``batch`` on the device, with its global rows:
+        the loader's own shard when it reads one, else rows cut from the
+        whole batch (``shard_batch``, which replicates an uneven batch)."""
+        device_batch = batch_to_device(batch, self.device)
+        if self.mesh.dp == 1:
+            return device_batch
+        count = getattr(loader, "shard_count", 1)
+        if count == 1:
+            return shard_batch(device_batch, self.mesh)
+        if (count, loader.shard_index) != (self.mesh.dp, self.mesh.dp_rank):
+            raise ValueError(f"the loader reads shard {loader.shard_index} of {count}; this "
+                             f"rank is {self.mesh.dp_rank} of dp {self.mesh.dp}")
+        b = device_batch["wave_input"].shape[0]
+        device_batch["rows"] = (self.mesh.dp_rank * b, self.mesh.dp * b)
+        return device_batch
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -201,13 +236,13 @@ class Trainer:
         t0 = t_prev = time.perf_counter()
         for i, batch in enumerate(self.train_loader):
             timing["data_wait_s"].append(time.perf_counter() - t_prev)
-            if profile_steps and i == 1 and epoch == self.start_epoch:
+            if profile_steps and i == 1 and epoch == self.start_epoch and self.rank0:
                 self._sync()
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.start()
                 prof_t0 = time.perf_counter()
-            device_batch = batch_to_device(batch, self.device)
+            device_batch = self._shard(batch, self.train_loader)
             self.gen_state, self.disc_states, metrics = self.train_step(
                 self.gen_state, self.disc_states, device_batch, rng)
             pending.append(metrics)
@@ -236,7 +271,7 @@ class Trainer:
         # Artifacts of the last batch's first item (reference
         # trainer.py:190-192); one more forward, so only with a writer.
         if self.writer.enabled and device_batch is not None:
-            wave_out, _ = self.eval_step(device_batch)
+            wave_out, _ = self.local_eval_step(device_batch)
             self._log_outputs(device_batch, wave_out)
         return self.train_metrics.result()
 
@@ -267,7 +302,7 @@ class Trainer:
         self.valid_metrics = MetricTracker()
         device_batch, wave_out, pending = None, None, []
         for batch in self.valid_loader:
-            device_batch = batch_to_device(batch, self.device)
+            device_batch = self._shard(batch, self.valid_loader)
             wave_out, metrics = self.eval_step(device_batch)
             pending.append(metrics)
         for m in _fetch(pending):
