@@ -16,6 +16,8 @@ raising on failure:
    largest segment bucket) and train step (batch 4) give it, and at shapes
    off the main path: the fused forward (y, and its chunk states H0 against
    their plain version) and backward, the recurrence forward and reverse,
+   and at the VMamba classifier's recurrence shapes (phase 14: L = 3136..49,
+   no multiple of the tile, D = 768..6144),
    with CUDA-event times beside the memory bound and device time by pass,
    under the exact kernel names each wrapper module exports. Every kernel
    runs twice on the same inputs and must give bitwise-equal outputs; the
@@ -60,8 +62,9 @@ raising on failure:
 10. variants: the remaining generator variants at the flagship's width
    (dims 16, depths 2-2-2-2, n_fft 1024, hop 240): the SINGLE, P2M and M2P
    configs loaded from their YAML, then MambaUNet (VM_ASR_BASIC), the
-   latent layout (dims 16..256), the v2 and v1 heads, patch-embed v1, GMLP
-   and FUSE_STREAMS, each one batch-1 segment in fp32 with the kernels
+   latent layout (dims 16..256), the v2 and v1 heads, patch-embed v1, GMLP,
+   FUSE_STREAMS and SSM_D_STATE 2 (every SS2D on the general-N route), each
+   one batch-1 segment in fp32 with the kernels
    against the plain scan, with launch counts derived from the model's
    SS2Ds and routing, and its bf16 forward timed; SINGLE through the CLI
    (train 4 steps with validation, checkpoints and one profiled step,
@@ -108,7 +111,21 @@ raising on failure:
    against the one-device kernel; NCCL at world size 1 through the dp
    step's collectives; and the CLI's ranks (--opts MESH.DP 2) on the card;
    with the dp2 step's ms and the phase's seconds beside the card's line.
-14. the kernels line, the card line, and the result line.
+14. vssm: the VMamba classifier (models/vssm.py) at its defaults (dims 96,
+   depths 2-2-9-2, d_state 16: every SS2D on the general-N route, one
+   recurrence launch a state channel) on 224×224×3 images from a seeded
+   init: its parameter count against the JAX package's; the fp32 logits at
+   batch 8 with the kernels against the plain scan (and both against the
+   plain scan in fp64), with exactly 240 recurrence and no fused launches;
+   the bf16 forward at batch 8 timed (CUDA events) and profiled (busy time,
+   idle share, the recurrence's device time by kernel name beside its
+   bound); the fp32 gradient of the logits against a seeded cotangent at
+   batch 2, kernels against plain, with 240 reverse launches and the peak
+   memory; BackboneVSSM's feature shapes; and matmul_flops of the batch-1
+   forward equal to the JAX package's count.
+15. checks: vm_asr_tpu_torch.checks with --grid (every kernel against its
+   plain version at the JAX package's grid, and the micro-benchmarks).
+16. the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -132,15 +149,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vm_asr_tpu_torch import checks as port_checks
 from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
+from vm_asr_tpu_torch.core.profiling import matmul_flops, model_flops
 from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK, native
 from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
 from vm_asr_tpu_torch.models import (
     SS2D,
+    BackboneVSSM,
     DualStreamStackedMambaUNet,
     get_discriminators,
     get_generator,
+    get_vssm,
     set_scan_impl,
     to_stacked,
 )
@@ -1216,6 +1237,8 @@ VARIANT_OPTIONS = {
     "patch embed v1": {"MODEL.VSSM.PATCHEMBED": "v1"},
     "GMLP": {"MODEL.VSSM.GMLP": True},
     "FUSE_STREAMS": {"MODEL.VSSM.FUSE_STREAMS": True},
+    # N = 2: every SS2D takes the general-N route, two recurrences a scan.
+    "d_state 2": {"MODEL.VSSM.SSM_D_STATE": 2},
 }
 LATENT = "latent dims (16, 32, 64, 128, 256)"
 
@@ -2660,6 +2683,189 @@ def parallel_phase(smi):
     return report
 
 
+# The VMamba classifier at its defaults (models/vssm.py: dims 96, depths
+# 2-2-9-2, d_state 16) on a 224×224×3 image: stages at 56², 28², 14², 7²
+# with K·d_inner = 768..6144, every SS2D on the general-N route, one
+# recurrence launch a state channel. (L, K·D) → SS2Ds.
+VSSM_SCANS = {(3136, 768): 2, (784, 1536): 2, (196, 3072): 9, (49, 6144): 2}
+VSSM_N = 16
+VSSM_IMAGE = 224
+VSSM_BATCH = 8       # the forwards
+VSSM_GRAD_BATCH = 2  # the gradient: 16 saved (B, L, K·D) fp32 states an SS2D
+# The JAX package's counts for VSSM() (vm_asr_tpu/models/vssm.py), taken on
+# the CPU: jax.eval_shape of its init, and core/profiling.matmul_flops of
+# its batch-1 224² forward with the "ref" scan.
+VSSM_PARAMS = 43_762_024
+VSSM_MATMUL_FLOPS = 14_494_371_840
+# The fp32 logits, kernels against the plain scan, max |diff| / max |plain|
+# (TF32 off): the scans' ~1e-7 differences through 15 SS2Ds, as the
+# flagship forward's MODEL_REL_TOL; a wrong kernel moves them by O(1).
+VSSM_REL_TOL = MODEL_REL_TOL
+
+
+def vssm_bound_ms(batch: int):
+    """The recurrence's bound over one forward's 240 calls (a, b read, h
+    written, fp32) and over one backward's reverse calls (a, h, g read, da,
+    dh written)."""
+    elems = sum(n * VSSM_N * batch * l * d for (l, d), n in VSSM_SCANS.items())
+    return bound_ms(3 * elems * 4, LR_OPS * elems), bound_ms(5 * elems * 4, LR_REV_OPS * elems)
+
+
+def vssm_phase(smi):
+    """The VMamba classifier at its full default width on the card (phase 14
+    of the module docstring). Returns the report."""
+    report = {}
+    launches = sum(VSSM_SCANS.values()) * VSSM_N
+    want_fwd = dict(selective_scan_fused=0, selective_scan_fused_bwd=0,
+                    linear_recurrence=launches, linear_recurrence_reverse=0)
+    model = get_vssm("cuda", seed=0)
+    params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(VSSM_BATCH, VSSM_IMAGE, VSSM_IMAGE, 3, device="cuda", generator=gen)
+    seen = Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.update([(inp[0].shape[1] * inp[0].shape[2], K * mod.d_inner)]))
+        for m in model.modules() if isinstance(m, SS2D)]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain", "plain64"):
+            set_scan_impl(model, impl)
+            zero_counts()
+            out[impl] = model(x)
+            torch.cuda.synchronize()
+            report[f"{impl}_launches"] = read_counts()
+            for h in hooks:
+                h.remove()
+            hooks = []
+    set_scan_impl(model, "kernel")
+    scale = out["plain64"].abs().max()
+    rel = {name: ((out[a] - out[b]).abs().max() / s_).item() for name, a, b, s_ in (
+        ("kernel_vs_plain", "kernel", "plain", out["plain"].abs().max()),
+        ("kernel_vs_fp64", "kernel", "plain64", scale), ("plain_vs_fp64", "plain", "plain64", scale))}
+    finite = bool(torch.isfinite(out["kernel"]).all())
+    print(f"VSSM(): {params} parameters (JAX {VSSM_PARAMS}); fp32 logits "
+          f"{tuple(out['kernel'].shape)} at batch {VSSM_BATCH}, finite {finite}; max|kernel - "
+          f"plain| / max|plain| {rel['kernel_vs_plain']:.3e} (tol {VSSM_REL_TOL}); against the "
+          f"plain scan in fp64: kernels {rel['kernel_vs_fp64']:.3e}, plain fp32 "
+          f"{rel['plain_vs_fp64']:.3e}; launches {report['kernel_launches']}; TF32 off")
+    if dict(seen) != VSSM_SCANS or params != VSSM_PARAMS or not finite \
+            or out["kernel"].shape != (VSSM_BATCH, 1000) or not rel["kernel_vs_plain"] <= VSSM_REL_TOL \
+            or report["kernel_launches"] != want_fwd or any(report["plain_launches"].values()) \
+            or any(report["plain64_launches"].values()):
+        raise AssertionError(f"vssm forward failed: scans {dict(seen)}, {report}, {rel}")
+    report.update(params=params, rel=rel, tol=VSSM_REL_TOL)
+    del out
+
+    # bf16 compute, batch 8: wall, busy, idle share, the recurrence's time.
+    model16 = get_vssm("cuda", seed=0, compute_dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    fwd = lambda: model16(x)  # noqa: E731
+    with torch.inference_mode():
+        wall = cuda_ms(fwd, reps=5, per=1)
+        for _ in range(3):  # a capture that dropped events counts the calls short
+            events = device_kernels(fwd)
+            ms_by, calls = by_wrapper(events)
+            if calls["linear_recurrence"] == launches:
+                break
+    busy = busy_us(events) / 1e3
+    by_name = Counter()
+    for name, s_, e_ in events:
+        by_name[name] += (e_ - s_) / 1e3
+    fwd_bound = vssm_bound_ms(VSSM_BATCH)[0]
+    report["bf16_forward"] = dict(
+        batch=VSSM_BATCH, wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+        device_events=len(events), recurrence_device_ms=ms_by["linear_recurrence"],
+        recurrence_calls=dict(calls), recurrence_bound_ms=fwd_bound[0],
+        images_per_s=VSSM_BATCH / (wall / 1e3), top=by_name.most_common(10))
+    print(f"bf16 forward, batch {VSSM_BATCH}: wall {wall:.2f} ms (CUDA events), device busy "
+          f"{busy:.2f} ms in {len(events)} events, idle share {1 - busy / wall:.3f}; the "
+          f"recurrence {ms_by['linear_recurrence']:.3f} ms device in "
+          f"{calls['linear_recurrence']} calls by kernel name (bound {fwd_bound[0]:.3f} ms, "
+          f"{fwd_bound[1]}); {VSSM_BATCH / (wall / 1e3):.1f} images/s  [{smi}]")
+    for n, t in by_name.most_common(10):
+        print(f"  {t:8.3f} ms  {n[:100]}")
+    if dict(calls) != {"linear_recurrence": launches}:
+        raise AssertionError(f"bf16 forward: scan calls by kernel name {dict(calls)}")
+    del model16
+
+    # fp32 gradient of <logits, a seeded cotangent>, batch 2, kernels vs plain.
+    xg = x[:VSSM_GRAD_BATCH].clone()
+    ct = torch.randn(VSSM_GRAD_BATCH, 1000, device="cuda", generator=gen)
+    named = list(model.named_parameters())
+    grads, peaks, counts = {}, {}, {}
+    for impl in ("kernel", "plain"):
+        set_scan_impl(model, impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        logits = model(xg)
+        grads[impl] = torch.autograd.grad((logits * ct).sum(), [p_ for _, p_ in named])
+        torch.cuda.synchronize()
+        counts[impl] = read_counts()
+        peaks[impl] = torch.cuda.max_memory_allocated() / 1e9
+        del logits
+    set_scan_impl(model, "kernel")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    top = max(g_.abs().max().item() for g_ in grads["plain"])
+    ratios = [((k_ - p_).abs().max() / (GRAD_REL * p_.abs().max() + GRAD_FLOOR * top)).item()
+              for k_, p_ in zip(grads["kernel"], grads["plain"])]
+    worst = int(np.argmax(ratios))
+    zero = [n for (n, _), g_ in zip(named, grads["kernel"])
+            if ".op." in n and not g_.abs().max().item() > 0]
+    want_grad = dict(want_fwd, linear_recurrence_reverse=launches)
+    report["gradient"] = dict(
+        batch=VSSM_GRAD_BATCH, worst_ratio=ratios[worst], worst_tensor=named[worst][0],
+        rel=GRAD_REL, floor=GRAD_FLOOR, top=top, launches=counts["kernel"],
+        peak_memory_gb=peaks, zero_ss2d_gradients=zero, reverse_bound_ms=vssm_bound_ms(
+            VSSM_GRAD_BATCH)[1][0])
+    print(f"fp32 gradient, batch {VSSM_GRAD_BATCH}: worst of the bar ({GRAD_REL} of each "
+          f"tensor's scale + {GRAD_FLOOR} of the largest, {top:.3e}) kernels vs plain "
+          f"{ratios[worst]:.3e} ({named[worst][0]}); zero SS2D gradients {zero}; launches "
+          f"{counts['kernel']}; max_memory_allocated {peaks['kernel']:.2f} GB (plain scan "
+          f"{peaks['plain']:.2f} GB)  [{smi}]")
+    if ratios[worst] > 1 or zero or counts["kernel"] != want_grad or any(counts["plain"].values()):
+        raise AssertionError(f"vssm gradient failed: {report['gradient']}")
+    del grads
+
+    # BackboneVSSM's features at 224², and the FLOP count of the batch-1 forward.
+    backbone = get_vssm("cuda", seed=0, cls=BackboneVSSM)
+    with torch.inference_mode():
+        zero_counts()
+        feats = backbone(x[:1])
+        bb_counts = read_counts()
+        one = x[:1].clone()
+        flops = matmul_flops(model, one)
+        total = model_flops(model, one)
+    shapes = [tuple(f.shape) for f in feats]
+    want_shapes = [(1, 28, 28, 192), (1, 14, 14, 384), (1, 7, 7, 768), (1, 7, 7, 768)]
+    report.update(backbone_shapes=shapes, backbone_launches=bb_counts, matmul_flops=flops,
+                  model_gflops=total)
+    print(f"BackboneVSSM features {shapes}, finite {all(bool(torch.isfinite(f).all()) for f in feats)}; "
+          f"launches {bb_counts}; matmul_flops of the batch-1 forward {flops} (JAX "
+          f"{VSSM_MATMUL_FLOPS}); model_flops {total['gflops']:.4f} GFLOP (scan "
+          f"{total['scan_gflops']:.4f})")
+    if shapes != want_shapes or not all(bool(torch.isfinite(f).all()) for f in feats) \
+            or bb_counts != want_fwd or flops != VSSM_MATMUL_FLOPS:
+        raise AssertionError(f"vssm backbone or FLOP count failed: {report}")
+    return report
+
+
+def checks_phase(smi):
+    """``python -m vm_asr_tpu_torch.checks --grid`` in-process, on the card
+    (phase 15 of the module docstring);
+    its failure fails the run. Returns its numbers and its launches."""
+    zero_counts()
+    out = port_checks.run(["--grid"])  # main() is run() and exit code 0
+    launches = read_counts()
+    print(f"checks launches {launches}  [{smi}]")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched by the checks: {launches}")
+    return dict(out, launches=launches)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -2739,6 +2945,12 @@ def main() -> int:
                   (2, 20_001, 33)):
         checks.append(check_lr(*shape, gen))
         checks.append(check_lr_reverse(*shape, gen))
+    # The classifier's shapes (vssm phase): L = 3136..49, none a multiple of
+    # the 128-step tile, at D = 768..6144; forward at its batch 8, reverse at
+    # its gradient's batch 2.
+    for (l, d) in VSSM_SCANS:
+        checks.append(check_lr(VSSM_BATCH, l, d, gen))
+        checks.append(check_lr_reverse(VSSM_GRAD_BATCH, l, d, gen))
     for c in checks:
         passes = "not measured" if c["passes"] is None else \
             ", ".join(f"{p} {t:.4f}" for p, t in c["passes"].items())
@@ -3032,6 +3244,15 @@ def main() -> int:
                "sequence-sharded fused scan, NCCL at world size 1 (flagship, fp32)")
     report["parallel"] = parallel_phase(smi)
 
+    t0 = phase("vssm: the VMamba classifier at its defaults (dims 96, depths 2-2-9-2, "
+               "d_state 16), 224x224x3, through the recurrence kernel")
+    report["vssm"] = vssm_phase(smi)
+    print(f"vssm phase in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("checks: python -m vm_asr_tpu_torch.checks --grid")
+    report["checks"] = checks_phase(smi)
+    print(f"checks phase in {time.perf_counter() - t0:.1f} s")
+
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
         forward's (batch 1), of the per-shape rows."""
@@ -3116,6 +3337,37 @@ def main() -> int:
               "vm_asr_tpu/ops/linear_recurrence.py:241",
               [("linear_recurrence_reverse", LR_CALLS, "torch.float32")], repeatable=repeat),
     ]
+    # The classifier's launches and the recurrence's times beside its bound:
+    # in the profiled bf16 forward (vssm phase), and summed over one
+    # forward's (batch 8) or one gradient's (batch 2) calls from the kernels
+    # phase's rows at its shapes; every kernel's launches in the checks phase.
+    vssm, fwd16 = report["vssm"], report["vssm"]["bf16_forward"]
+
+    def per_vssm_pass(name, batch):
+        rows = {tuple(c["shape"]): c for c in checks if c["kernel"] == name}
+        calls = {(batch, l, d): VSSM_N * n for (l, d), n in VSSM_SCANS.items()}
+        out = {key: sum(n * rows[s][key] for s, n in calls.items())
+               for key in ("ms", "plain_ms", "bound_ms")}
+        dev = [rows[s]["device_ms"] for s in calls]
+        out["device_ms"] = None if None in dev else sum(
+            n * rows[s]["device_ms"] for s, n in calls.items())
+        return out
+
+    for k in kernels:
+        k["checks_launches"] = report["checks"]["launches"][k["name"]]
+        k["vssm_forward_launches"] = vssm["kernel_launches"][k["name"]]
+        k["vssm_gradient_launches"] = vssm["gradient"]["launches"][k["name"]]
+    lr_vssm = per_vssm_pass("linear_recurrence", VSSM_BATCH)
+    rev_vssm = per_vssm_pass("linear_recurrence_reverse", VSSM_GRAD_BATCH)
+    kernels[2].update(vssm_forward=lr_vssm,
+                      vssm_bf16_forward_in_model_device_ms=fwd16["recurrence_device_ms"])
+    kernels[3].update(vssm_gradient=rev_vssm)
+    print(f"recurrence per VSSM forward (batch {VSSM_BATCH}, {sum(VSSM_SCANS.values()) * VSSM_N} "
+          f"calls): in the profiled bf16 forward {fwd16['recurrence_device_ms']:.4f} ms device; "
+          f"back to back {fmt_ms(lr_vssm['device_ms'])} device, {lr_vssm['ms']:.4f} ms wrapper; "
+          f"bound {lr_vssm['bound_ms']:.4f} ms. Reverse per VSSM gradient (batch "
+          f"{VSSM_GRAD_BATCH}): {fmt_ms(rev_vssm['device_ms'])} device, {rev_vssm['ms']:.4f} ms "
+          f"wrapper; bound {rev_vssm['bound_ms']:.4f} ms  [{smi}]")
     if any(c["bound_by"] != "bytes" for c in checks):
         raise AssertionError("a kernel check came out operation-bound; update bound_by")
     report["kernels"] = kernels

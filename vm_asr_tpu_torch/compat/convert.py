@@ -78,11 +78,11 @@ def _module_name(mods: Tuple[str, ...]) -> str:
     """flax module path (below a stream root) → the reference's dotted path."""
     out = []
     for i, m in enumerate(mods):
-        stage = re.fullmatch(r"(encoders|decoders|blocks)_(\d+)", m)
+        stage = re.fullmatch(r"(encoders|decoders|blocks|stages|out_norms)_(\d+)", m)
         if stage:
             kind, idx = stage.groups()
-            out.append({"encoders": "layers_encoder", "decoders": "layers_decoder",
-                        "blocks": "blocks"}[kind] + f".{idx}")
+            out.append({"encoders": "layers_encoder", "decoders": "layers_decoder"}
+                       .get(kind, kind) + f".{idx}")
         elif m == "latent":
             out.append("layers_latent.0")
         elif m == "skip_conv":
@@ -109,6 +109,13 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     SS2D / VSSBlock / VSSLayer, whose keys then come out relative to that
     module. Maps both layouts (the latent stage to ``layers_latent.0``), both
     patch embeds and the three heads.
+
+    Also takes the tree of a ``VSSM`` or ``BackboneVSSM`` (models/vssm.py):
+    ``stages_{i}`` → ``stages.{i}``, ``out_norms_{t}`` → ``out_norms.{t}``;
+    ``patch_embed``, ``norm`` and ``head`` keep their names. The JAX package
+    maps only the U-Net onto the reference's names (compat/torch_port.py),
+    so these keys are the JAX tree's; the reference VMamba's own names are
+    not checked here.
     """
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):

@@ -20,6 +20,7 @@ from .unet import (
     MambaUNet,
     stack_dual_state,
 )
+from .vssm import BackboneVSSM, VSSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -84,15 +85,29 @@ def get_generator(config, device="cuda", seed=None
     from a ``torch.Generator`` seeded with ``seed`` (default ``config.SEED``).
 
     ``device`` defaults to the card; a CUDA device without CUDA raises."""
-    dev = resolve_device(device)
     cls = MambaUNet if config.MODEL.NAME in _MAMBA_UNET_NAMES \
         else DualStreamInteractiveMambaUNet
-    kwargs = generator_kwargs(config)
+    return _build(cls, generator_kwargs(config), config.SEED if seed is None else seed,
+                  device)
+
+
+def get_vssm(device="cuda", seed: int = 0, cls: type = VSSM, **kwargs
+             ) -> Union[VSSM, BackboneVSSM]:
+    """``cls(**kwargs)``, the VMamba classifier ``VSSM`` or its multi-scale
+    feature backbone ``BackboneVSSM``, in eval mode on ``device``,
+    initialised from a ``torch.Generator`` seeded with ``seed``. ``device``
+    defaults to the card; a CUDA device without CUDA raises."""
+    return _build(cls, kwargs, seed, device)
+
+
+def _build(cls: type, kwargs: Dict[str, Any], seed: int, device) -> torch.nn.Module:
+    """``cls(**kwargs)`` built on the meta device, initialised on the CPU
+    from a generator seeded with ``seed``, then moved to ``device``."""
+    dev = resolve_device(device)
     with torch.device("meta"):
         model = cls(**kwargs)
     model = model.to_empty(device="cpu")
-    gen = torch.Generator().manual_seed(int(config.SEED if seed is None else seed))
-    init_parameters(model, gen)
+    init_parameters(model, torch.Generator().manual_seed(int(seed)))
     return model.to(dev).eval()
 
 

@@ -193,7 +193,8 @@ def linear_recurrence_reverse(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
 
 def _lr_forward(a, b):
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return linear_recurrence_plain(a, b)
+        h = linear_recurrence_plain(a, b)
+        return h.clone() if h.data_ptr() == b.data_ptr() else h  # L = 1: h is b
     return linear_recurrence_fwd(a, b)
 
 
@@ -235,8 +236,7 @@ class _LinearRecurrence(torch.autograd.Function):
 def linear_recurrence_op(a, b):
     """The same forward as one dispatcher op, whose output a selective
     activation checkpoint can name and keep (models/vss.py)."""
-    h = _lr_forward(a, b)
-    return h.clone() if h.data_ptr() == b.data_ptr() else h  # L = 1: h is b
+    return _lr_forward(a, b)
 
 
 @linear_recurrence_op.register_fake
