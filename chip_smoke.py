@@ -47,7 +47,10 @@ raising on failure:
 8. train: the flagship GAN train step (batch 4, bf16, MPD, AdamW), 3
    warm-up and 10 timed steps on synthetic speech, with launch counts, then
    one profiled step by kernel (each wrapper's kernels by their exported
-   names) and one by op and input shapes.
+   names) and one by op and input shapes; then the dims-24 config's GAN step
+   (configs/vm_asr_48k_16k_MPD_VSSM24.yaml, D = 48 at stage 0) at batch 4,
+   3 warm-up and 5 timed steps, launches derived from its SS2Ds, finite
+   losses, every parameter with a gradient changed, busy ms and peak memory.
 8b. scan routes: host time a call of each scan wrapper as an autograd
    Function (the main path) and as a dispatcher op (checkpointed blocks),
    and the train step with every SS2D on each route.
@@ -125,7 +128,18 @@ raising on failure:
    forward equal to the JAX package's count.
 15. checks: vm_asr_tpu_torch.checks with --grid (every kernel against its
    plain version at the JAX package's grid, and the micro-benchmarks).
-16. the kernels line, the card line, and the result line.
+16. bench: the stages of python -m vm_asr_tpu_torch.bench at the flagship's
+   width with cut iterations (BENCH_*): seven lines, each finite, with the
+   card's name and power limit, busy ms, idle share and peak memory, and
+   every share in (0, 100].
+17. trajectory: python -m vm_asr_tpu_torch.trajectory and ... --gan, two
+   processes side by side, 12 epochs in fp32 against the JAX Trainer's
+   curves in artifacts/trajectory_torch, with the chaos floor and the
+   defect, on torch's deterministic algorithms; fails when an arm's gap
+   exceeds its gate (its bar, or its largest chaos floor recorded on the
+   card where that lies above the bar) or when an arm's defect breaks no
+   gate.
+18. the script's seconds, the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -145,10 +159,12 @@ import time
 import warnings
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from vm_asr_tpu_torch import bench as port_bench
 from vm_asr_tpu_torch import checks as port_checks
 from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
@@ -1785,6 +1801,116 @@ def gan_option_step(label, overrides):
                 last_metrics={k: float(v) for k, v in history[-1].items()})
 
 
+def gan_steps(cfg, seed0: int, n_batches: int, warmup: int, timed: int):
+    """The GAN train step of ``cfg`` on the card from seeded weights:
+    ``warmup`` steps, then ``timed`` steps by CUDA events with the scans'
+    launches counted over them; ``n_batches`` batches of synthetic speech
+    (seeds from ``seed0``) in turn. Returns a namespace with the models,
+    ``run(i)`` (one more step on batch i), the step times, the
+    metrics, the peak memory and the parameters left unchanged with their
+    first step's gradient: a tensor may stay unchanged only if that
+    gradient is below AdamW's eps (``stuck`` lists those that may not)."""
+    model, discs = get_generator(cfg, "cuda"), get_discriminators(cfg, "cuda")
+    gen_state = GenState(model, make_optimizer(cfg, 1000, model))
+    disc_states = {n: DiscState(d, make_optimizer(cfg, 1000, d)) for n, d in discs.items()}
+    step = make_train_step(cfg, model, discs)
+    batches = [train_batch(cfg, seeds=range(seed0 + TRAIN_BATCH * i,
+                                            seed0 + TRAIN_BATCH * (i + 1)))
+               for i in range(n_batches)]
+    rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
+    params = list(model.named_parameters()) + [
+        (f"{n}.{k}", t) for n, d in discs.items() for k, t in d.named_parameters()]
+    before = {n: t.detach().clone() for n, t in params}
+    run = lambda i: step(gen_state, disc_states, batches[i % len(batches)], rng)  # noqa: E731
+    # The first step's generator gradient, from the same batch, weights and
+    # DropPath draws as the step itself, for the check of unchanged tensors.
+    rng_state = rng.get_state()
+    b0 = batches[0]
+    total, _, _ = step.gen_loss_fn(b0["wave_input"], b0["wave_target"], b0["highcut"], rng)
+    first_grad = {n: g.abs().max().item() for (n, _), g in zip(
+        model.named_parameters(), torch.autograd.grad(total, gen_state.params,
+                                                      allow_unused=True, materialize_grads=True))}
+    rng.set_state(rng_state)
+    del total
+    for i in range(warmup):  # cuDNN autotuning, allocator
+        run(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    marks, history = [], []
+    for i in range(timed):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        history.append(run(warmup + i)[2])
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in marks]
+    values = [{k: float(v) for k, v in m.items()} for m in history]
+    changed = {n for n, t in params if not torch.equal(before[n], t)}
+    # Any gradient above eps moves a tensor by about lr (≥ MIN_LR = 1e-5
+    # here) on the first step, more than half an ulp of any |parameter| < 8;
+    # below it the update lr·m/(sqrt(v) + eps) rounds away.
+    eps = cfg.TRAIN.OPTIMIZER.EPS
+    unchanged = {n: first_grad.get(n) for n in sorted(set(before) - changed)}
+    return SimpleNamespace(
+        model=model, discs=discs, run=run, step_ms=step_ms, median_ms=statistics.median(step_ms), values=values,
+        finite=all(np.isfinite(v) for m in values for v in m.values()), launches=launches,
+        per_step={k: n / timed for k, n in launches.items()},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, eps=eps, tensors=len(before),
+        changed=len(changed), unchanged=unchanged,
+        stuck=[n for n, g in unchanged.items() if g is None or not g < eps])
+
+
+DIMS24_YAML = "vm_asr_48k_16k_MPD_VSSM24.yaml"
+DIMS24_WARMUP, DIMS24_TIMED = 3, 5
+
+
+def dims24_step(smi):
+    """The dims-24 config's GAN train step (configs/vm_asr_48k_16k_MPD_VSSM24
+    .yaml: D = 48 at stage 0, K·D 192 to 1536 through the fused kernels) at
+    batch 4, bf16: DIMS24_WARMUP warm-up and DIMS24_TIMED timed steps (CUDA
+    events) with the launches derived from its SS2Ds, finite losses, every
+    parameter whose first-step gradient exceeds AdamW's eps changed, the
+    peak memory and one profiled step's busy time."""
+    cfg = load_config(str(ROOT / "configs" / DIMS24_YAML), [
+        "AMP_ENABLE", "True", "DATA.BATCH_SIZE", str(TRAIN_BATCH), "OUTPUT", str(OUT / "logs")])
+    v = cfg.MODEL.VSSM
+    got = (v.DIMS, list(v.DEPTHS), cfg.DATA.STFT.N_FFT, cfg.DATA.TARGET_SR, cfg.DTYPE.COMPUTE,
+           list(cfg.TRAIN.ADVERSARIAL.DISCRIMINATORS))
+    if got != (24, [2, 2, 2, 2], 1024, 48000, "bfloat16", ["mpd"]):
+        raise AssertionError(f"{DIMS24_YAML}: {got}")
+    g = gan_steps(cfg, 60, 2, DIMS24_WARMUP, DIMS24_TIMED)
+    per_fwd = scan_launches(g.model)
+    want = dict(per_fwd, selective_scan_fused_bwd=per_fwd["selective_scan_fused"],
+                linear_recurrence_reverse=per_fwd["linear_recurrence"])
+    events = device_kernels(lambda: g.run(0))
+    busy = busy_us(events) / 1e3 if events else None
+    median_ms, step_ms, per_step = g.median_ms, g.step_ms, g.per_step
+    row = dict(config=DIMS24_YAML, batch=TRAIN_BATCH, dtype="bfloat16",
+               params=sum(p.numel() for p in g.model.parameters()), median_ms=median_ms,
+               step_ms=step_ms, x_real_time=TRAIN_BATCH * cfg.DATA.SEGMENT / (median_ms / 1e3),
+               device_busy_ms=busy, device_events=len(events),
+               idle_share=None if busy is None else 1 - busy / median_ms,
+               peak_memory_gb=g.peak_gb, launches_per_step=per_step, want=want,
+               finite=g.finite, changed=g.changed, tensors=g.tensors,
+               unchanged_first_grad=g.unchanged, first=g.values[0], last=g.values[-1])
+    idle = "not measured" if busy is None else f"{row['idle_share']:.3f}"
+    print(f"dims 24 ({DIMS24_YAML}, {row['params']} generator parameters), batch "
+          f"{TRAIN_BATCH}, bf16: {DIMS24_TIMED} steps after {DIMS24_WARMUP}: median "
+          f"{median_ms:.2f} ms/step (CUDA events; min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}), device busy {fmt_ms(busy)} in {len(events)} events, idle "
+          f"share {idle}, peak "
+          f"memory {g.peak_gb:.2f} GB; launches per step {per_step} (derived {want}); finite "
+          f"{g.finite}; parameters changed {g.changed} of {g.tensors} tensors; unchanged, "
+          f"with the first step's max|grad| (AdamW eps {g.eps}): {g.unchanged}  [{smi}]")
+    print(f"dims 24 first step {json.dumps(g.values[0])}")
+    if not g.finite or per_step != want or g.stuck:
+        raise AssertionError(f"dims-24 step failed; unchanged with a gradient: {g.stuck}")
+    return row
+
+
 def stacked_phase(smi, cli_throughput, mpd_step):
     """Stacked execution and the remaining adversarial options on the card
     (phase 11 of the module docstring), beside the unstacked CLI throughput
@@ -2852,6 +2978,118 @@ def vssm_phase(smi):
     return report
 
 
+# The bench phase's warm-up calls and timed iterations (median_window_dt runs
+# 3 windows of iters + 2·iters calls), cut from the bench's defaults (40/20,
+# 20/10, 30/20, 10/10, 10/20) to hold the phase near two minutes; widths and
+# batches are the bench's own.
+BENCH_INFERENCE = {"batch1": dict(warmup=10, iters=5), "stacked": dict(warmup=10, iters=5),
+                   "fullclip": dict(warmup=5, iters=3), "batched": dict(warmup=3, iters=2)}
+BENCH_TRAIN = dict(warmup=3, iters=2)
+BENCH_SCAN = dict(warmup=5, iters=10)
+BENCH_METRICS = ("rtf_reciprocal_48k_batch1", "rtf_reciprocal_48k_batch1_stacked",
+                 "rtf_reciprocal_48k_fullclip_device", "rtf_reciprocal_48k_batch32",
+                 "train_rt_factor_48k_MPD_batch8", "scan_fwd_hbm_roofline_pct",
+                 "scan_fwd_bwd_hbm_roofline_pct")
+# A device busy time above the timed wall by more than this share is no
+# reading. Busy and wall come from different calls, and the profiler
+# lengthens kernels a little: the device-bound batch-32 call read busy 2 %
+# above its wall (idle share -0.020; NVIDIA H100 80GB HBM3, 700 W).
+IDLE_NOISE = 0.05
+
+
+def numbers(tree):
+    """Every number in a nested dict / list of a metric line."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from numbers(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from numbers(v)
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield tree
+
+
+def bench_phase(smi):
+    """python -m vm_asr_tpu_torch.bench's stages at full width with cut
+    iterations: every line printed, each finite, with the card's name and
+    power limit, busy ms, idle share and peak memory, every share in
+    (0, 100]; the scans' launches over the phase."""
+    card = port_bench.Card.probe("cuda")
+    print(f"iterations: inference {BENCH_INFERENCE}, train {BENCH_TRAIN}, scan {BENCH_SCAN}")
+    zero_counts()
+    lines = port_bench.run(card, inference=BENCH_INFERENCE, train=BENCH_TRAIN, scan=BENCH_SCAN)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    got = [r["metric"] for r in lines]
+    if got != list(BENCH_METRICS):
+        raise AssertionError(f"bench lines {got} != {list(BENCH_METRICS)}")
+    smi_name, smi_power = (s.strip() for s in smi.split(","))
+    for r in lines:
+        bad = [x for x in numbers(r) if not np.isfinite(x)]
+        shares = [r[k] for k in r if k.startswith("mfu_pct_")] + (
+            [r["value"]] if r["metric"].endswith("_pct") else [])
+        if (bad or any(r[k] is None for k in ("value", "device_busy_ms", "idle_share",
+                                               "peak_memory_gb", "power_limit_w"))
+                or not all(0.0 < x <= 100.0 for x in shares)
+                or not -IDLE_NOISE < r["idle_share"] < 1.0
+                or r["device"] != smi_name or r["power_limit_w"] != float(smi_power.split()[0])):
+            raise AssertionError(f"bench line out of bounds: {json.dumps(r)}")
+    print(f"bench: {len(lines)} lines, launches over the phase {launches}  [{smi}]")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the bench's path never launched: {launches}")
+    return dict(lines=lines, launches=launches,
+                iters=dict(inference=BENCH_INFERENCE, train=BENCH_TRAIN, scan=BENCH_SCAN))
+
+
+TRAJECTORY_EPOCHS = 12
+TRAJECTORY_TIMEOUT_S = 900
+
+
+def trajectory_phase(smi):
+    """python -m vm_asr_tpu_torch.trajectory and ... --gan, the two arms
+    side by side in two processes on the card (each host-bound, one CPU
+    core apiece): the port's Trainer against the JAX Trainer's recorded
+    curves in fp32, with the chaos floor and the defect; fails when an arm
+    exits non-zero (a gap over its gate, or a defect that breaks no gate) or
+    its summary says the defect went through. The scans' launches are each
+    process's own count over its three runs (``launches`` in
+    gaps_{arm}.json)."""
+    out_dir = OUT / "trajectory"
+    procs = {}
+    for arm, flag in (("nogan", []), ("gan", ["--gan"])):
+        log = open(OUT / f"trajectory_{arm}.log", "w")
+        procs[arm] = (subprocess.Popen(
+            [sys.executable, "-m", "vm_asr_tpu_torch.trajectory", "--epochs",
+             str(TRAJECTORY_EPOCHS), "--out", str(out_dir)] + flag,
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log)
+    rcs = {}
+    try:
+        for arm, (proc, _) in procs.items():
+            rcs[arm] = proc.wait(timeout=TRAJECTORY_TIMEOUT_S)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out, launches = {}, Counter()
+    for arm in procs:
+        print((OUT / f"trajectory_{arm}.log").read_text().rstrip() + f"  [{smi}]")
+        path = out_dir / f"gaps_{arm}.json"
+        out[arm] = json.loads(path.read_text()) if rcs[arm] in (0, 1) and path.exists() else None
+        if out[arm] is not None:
+            launches.update(out[arm]["launches"])
+    launches = {fn.__name__: launches[fn.__name__] for fn in COUNTED}
+    caught = {arm: s["defect"]["caught"] for arm, s in out.items() if s is not None}
+    print(f"trajectory: exit codes {rcs}; defect caught {caught}; launches over both arms "
+          f"{launches}")
+    if (any(rcs.values()) or not all(launches.values())
+            or sorted(arm for arm, hit in caught.items() if hit) != sorted(procs)):
+        raise AssertionError(f"trajectory failed: exit codes {rcs}; defect caught {caught}; "
+                             f"launches {launches}")
+    return dict(arms=out, launches=launches)
+
+
 def checks_phase(smi):
     """``python -m vm_asr_tpu_torch.checks --grid`` in-process, on the card
     (phase 15 of the module docstring);
@@ -2873,6 +3111,7 @@ def main() -> int:
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
     report = {}
+    t_start = time.perf_counter()
 
     t0 = phase("device")
     smi = nvidia_smi_line()
@@ -3102,52 +3341,10 @@ def main() -> int:
 
     t0 = phase("train: flagship GAN train step, batch 4, bf16")
     cfg = flagship_config(amp=True, gan=True)
-    model = get_generator(cfg, "cuda")
-    discs = get_discriminators(cfg, "cuda")
-    steps_per_epoch = 1000
-    gen_state = GenState(model, make_optimizer(cfg, steps_per_epoch, model))
-    disc_states = {n: DiscState(d, make_optimizer(cfg, steps_per_epoch, d))
-                   for n, d in discs.items()}
-    step = make_train_step(cfg, model, discs)
-    batches = [train_batch(cfg, seeds=range(30 + TRAIN_BATCH * i, 30 + TRAIN_BATCH * (i + 1)))
-               for i in range(4)]
-    rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
-    before = {n: t.detach().clone() for n, t in
-              list(model.named_parameters()) + list(discs["mpd"].named_parameters())}
-    run = lambda i: step(gen_state, disc_states, batches[i % len(batches)], rng)  # noqa: E731
-    # The first step's generator gradient, from the same batch, weights and
-    # DropPath draws as the step itself, for the check of unchanged tensors.
-    rng_state = rng.get_state()
-    b0 = batches[0]
-    total, _, _ = step.gen_loss_fn(b0["wave_input"], b0["wave_target"], b0["highcut"], rng)
-    first_grad = {n: g.abs().max().item() for (n, _), g in zip(
-        model.named_parameters(), torch.autograd.grad(total, gen_state.params,
-                                                      allow_unused=True, materialize_grads=True))}
-    rng.set_state(rng_state)
-    del total
-    for i in range(3):  # warm-up: cuDNN autotuning, allocator
-        run(i)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     n_steps = 10
-    zero_counts()
-    marks, history = [], []
-    for i in range(n_steps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        history.append(run(3 + i)[2])
-        end.record()
-        marks.append((start, end))
-    torch.cuda.synchronize()
-    train_launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = [s_.elapsed_time(e_) for s_, e_ in marks]
-    median_ms = statistics.median(step_ms)
-    values = [{k: float(v) for k, v in m.items()} for m in history]
-    finite = all(np.isfinite(v) for m in values for v in m.values())
-    changed = [n for n, t in list(model.named_parameters()) +
-               list(discs["mpd"].named_parameters()) if not torch.equal(before[n], t)]
-    per_step = {k: v / n_steps for k, v in train_launches.items()}
+    g = gan_steps(cfg, 30, 4, 3, n_steps)
+    model, discs, run, step_ms, median_ms = g.model, g.discs, g.run, g.step_ms, g.median_ms
+    train_launches, peak_gb, values, per_step = g.launches, g.peak_gb, g.values, g.per_step
     want = dict(selective_scan_fused=30, selective_scan_fused_bwd=30, linear_recurrence=4,
                 linear_recurrence_reverse=4)
     print(f"{n_steps} steps: median {median_ms:.2f} ms/step (CUDA events; min "
@@ -3156,17 +3353,11 @@ def main() -> int:
           f"memory {peak_gb:.2f} GB; launches per step {per_step}")
     print(f"first step {json.dumps(values[0])}")
     print(f"last step {json.dumps(values[-1])}")
-    # A tensor may stay unchanged only if its gradient is below AdamW's eps:
-    # the update lr·m/(sqrt(v) + eps) is then far below lr and rounds away.
-    # Any gradient above eps moves it by about lr (≥ MIN_LR = 1e-5 here) on
-    # the first step, more than half an ulp of any |parameter| < 8.
-    eps = cfg.TRAIN.OPTIMIZER.EPS
-    unchanged = {n: first_grad.get(n) for n in sorted(set(before) - set(changed))}
-    stuck = [n for n, g in unchanged.items() if g is None or not g < eps]
-    print(f"finite {finite}; parameters changed {len(changed)} of {len(before)} tensors; "
-          f"unchanged, with the first step's max|grad| (AdamW eps {eps}): {unchanged}")
-    if not finite or per_step != want or stuck:
-        raise AssertionError(f"train phase failed; unchanged with a gradient: {stuck}")
+    unchanged = g.unchanged
+    print(f"finite {g.finite}; parameters changed {g.changed} of {g.tensors} tensors; "
+          f"unchanged, with the first step's max|grad| (AdamW eps {g.eps}): {unchanged}")
+    if not g.finite or per_step != want or g.stuck:
+        raise AssertionError(f"train phase failed; unchanged with a gradient: {g.stuck}")
     for _ in range(3):  # a capture that dropped events counts the scan calls short
         events = device_kernels(lambda: run(0))
         in_step, in_step_calls = by_wrapper(events)
@@ -3201,6 +3392,7 @@ def main() -> int:
                            device_events=len(events), scan_kernels_ms=scan_ms,
                            scan_kernels_by_wrapper=in_step, top=by_name.most_common(20),
                            top_ops=ops)
+    report["train"]["dims24"] = dims24_step(smi)
     print(f"trained in {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("scan routes: autograd Function (main path) against dispatcher op "
@@ -3218,7 +3410,7 @@ def main() -> int:
           f"of {steps['steps_per_route']} steps each  [{smi}]")
     report["scan_routes"] = dict(host_us=host, step=steps)
     print(f"routes timed in {time.perf_counter() - t0:.1f} s")
-    del model, discs, gen_state, disc_states, step, batches, history
+    del model, discs, run, g
 
     t0 = phase("cli: train, resume, eval, throughput (vm_asr_tpu_torch.cli, flagship, batch 4)")
     report["cli"], cli_launches = cli_phase(smi, idle)
@@ -3252,6 +3444,16 @@ def main() -> int:
     t0 = phase("checks: python -m vm_asr_tpu_torch.checks --grid")
     report["checks"] = checks_phase(smi)
     print(f"checks phase in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("bench: python -m vm_asr_tpu_torch.bench's stages, flagship width, cut "
+               "iterations")
+    report["bench"] = bench_phase(smi)
+    print(f"bench phase in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("trajectory: python -m vm_asr_tpu_torch.trajectory [--gan], 12 epochs, fp32, "
+               "against the JAX Trainer's recorded curves")
+    report["trajectory"] = trajectory_phase(smi)
+    print(f"trajectory phase in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
@@ -3355,6 +3557,9 @@ def main() -> int:
 
     for k in kernels:
         k["checks_launches"] = report["checks"]["launches"][k["name"]]
+        k["dims24_launches_per_step"] = report["train"]["dims24"]["launches_per_step"][k["name"]]
+        k["bench_launches"] = report["bench"]["launches"][k["name"]]
+        k["trajectory_launches"] = report["trajectory"]["launches"][k["name"]]
         k["vssm_forward_launches"] = vssm["kernel_launches"][k["name"]]
         k["vssm_gradient_launches"] = vssm["gradient"]["launches"][k["name"]]
     lr_vssm = per_vssm_pass("linear_recurrence", VSSM_BATCH)
@@ -3371,7 +3576,9 @@ def main() -> int:
     if any(c["bound_by"] != "bytes" for c in checks):
         raise AssertionError("a kernel check came out operation-bound; update bound_by")
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_start
     (OUT / "report.json").write_text(json.dumps(report, indent=1))
+    print(f"chip_smoke: every phase passed in {report['script_s']:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -245,7 +245,7 @@ def _fake_epochs(trainer, lsds):
         seen.append(epoch)
         return {"lsd": lsds[epoch], "total_loss": 1.0}
 
-    trainer._train_epoch = train_epoch
+    trainer.train_epoch = train_epoch
     trainer._valid_epoch = lambda epoch: {"lsd": 9.0}
     return seen
 

@@ -33,7 +33,7 @@ import json
 import math
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -155,7 +155,7 @@ class Trainer:
             timing = {"epoch": epoch}
             if self.rank0:
                 self.timings.append(timing)
-            log = self._train_epoch(epoch, timing)
+            log = self.train_epoch(epoch, timing)
             if self.valid_loader is not None:
                 t0 = time.perf_counter()
                 val_log = self._valid_epoch(epoch)
@@ -223,7 +223,11 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _train_epoch(self, epoch: int, timing: Dict[str, Any]) -> Dict[str, float]:
+    def train_epoch(self, epoch: int, timing: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, float]:
+        """One epoch of training steps; the epoch's mean metrics. Host-clock
+        step and data-wait times go into ``timing`` when it is given."""
+        timing = {} if timing is None else timing
         self.train_metrics = MetricTracker()
         self.train_loader.set_epoch(epoch)
         rng = torch.Generator(device=self.device).manual_seed(self.config.SEED * 7919 + epoch)
