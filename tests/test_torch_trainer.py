@@ -41,6 +41,7 @@ from vm_asr_tpu.parallel import make_mesh
 from vm_asr_tpu.train.trainer import Trainer as JaxTrainer
 from vm_asr_tpu_torch.compat import flax_disc_variables_to_state_dict, flax_params_to_state_dict
 from vm_asr_tpu_torch.core import default_config
+from vm_asr_tpu_torch.core.profiling import recorded_spans
 from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, train_valid_split
 from vm_asr_tpu_torch.models import get_discriminators, get_generator
 from vm_asr_tpu_torch.train import Trainer as PortTrainer
@@ -300,6 +301,9 @@ def test_resume_from_latest(tmp_path):
     assert second.gen_state.optimizer.count == 6
     assert second.ckpt.load("G", "latest")["epoch"] == 1
     assert second.timings[0]["profile"]["steps"] == 1
+    # The idle split needs the card's events; the profile's spans are dropped.
+    assert second.timings[0]["profile"]["idle_ms_by_span"] is None
+    assert recorded_spans() == []
     assert (tmp_path / "profile" / "trace.json.gz").is_file()
     assert list((tmp_path / "tb").iterdir()), "no TensorBoard events written"
 

@@ -8,8 +8,7 @@ Prints one JSON line a metric:
 
 - ``rtf_reciprocal_48k_batch1``: audio seconds over device seconds for one
   2.555 s segment at batch 1 (bf16 compute, ``torch.no_grad``), the
-  reference's RTF_RECIPROCAL column; ``vs_baseline`` divides by the
-  reference's best V100 figure, 59.8 (BASELINE.md);
+  reference's RTF_RECIPROCAL column;
 - ``rtf_reciprocal_48k_batch1_stacked``: the same through the
   stream-stacked generator (``models.to_stacked``);
 - ``rtf_reciprocal_48k_fullclip_device``: a clip of three overlapping
@@ -19,9 +18,9 @@ Prints one JSON line a metric:
   of the card's dense bf16 tensor-core peak;
 - ``train_rt_factor_48k_MPD_batch8``: audio seconds trained per second by
   the port's Trainer step (generator, MPD, AdamW ×2; FUSE_STREAMS on) at
-  batch 8, with the step's decomposition by subtraction: the step without
-  the GAN (generator + L1 + STFT loss) and with the L1 loss alone;
-  ``vs_baseline`` null (the JAX bench's baseline was a TPU figure);
+  batch 8, with the step's phases from the spans of its profiled call:
+  ``phase_ms``, host ms a step by phase, and ``phase_idle_ms``, the
+  device's idle ms a step by the innermost phase open;
 - ``scan_fwd_hbm_roofline_pct`` and ``scan_fwd_bwd_hbm_roofline_pct``: the
   fused scan (the autograd Function of the main path) at (8, 16384, 128)
   bf16, ``scan_roofline_bytes`` over the time as a share of the card's HBM
@@ -32,7 +31,8 @@ events on a card), each call chained to the previous one's output so that
 every call is distinct and its output consumed, after the JAX bench's
 warm-up calls. Beside each line's wall figure: ``device_busy_ms`` (the
 union of the device's kernel and copy intervals in one profiled call, or
-a call's share of a profiled window of at least 20 ms) and
+a call's share of a profiled window of at least 20 ms; the CPU is profiled
+too, for the spans) and
 ``idle_share`` (1 − busy ÷ the timed wall), the card's ``device`` name and
 ``power_limit_w`` (nvidia-smi), and ``peak_memory_gb``
 (``torch.cuda.max_memory_allocated`` over the stage).
@@ -52,6 +52,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import time
 import traceback
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
@@ -61,10 +62,16 @@ import torch
 
 from .core import default_config
 from .core.device import resolve_device
-from .core.profiling import matmul_flops, median_window_dt
+from .core.profiling import (
+    busy_ns,
+    clear_spans,
+    device_intervals,
+    idle_by_span,
+    matmul_flops,
+    median_window_dt,
+    recorded_spans,
+)
 from .dsp import fold_audio, unfold_audio
-
-V100_BEST_RTF_RECIPROCAL = 59.8  # the reference's best RTF_RECIPROCAL (V100 32 GB, BASELINE.md)
 
 # Dense (no sparsity) bf16 tensor-core FLOP/s and HBM bytes/s by the card's
 # name as torch.cuda.get_device_name gives it. NVIDIA H100 Tensor Core GPU
@@ -153,34 +160,51 @@ class Card:
         return torch.cuda.max_memory_allocated(self.device) / 1e9 if self.cuda else None
 
 
-def busy_ms(fn: Callable[[], object], card: Card, calls: int = 1) -> Optional[float]:
-    """Device busy ms a call of ``fn``, from ``calls`` back-to-back calls
-    under torch.profiler: the union of their kernels' and copies' intervals
-    (annotations left out, as chip_smoke.py reads them) over ``calls``.
-    Raises when the capture holds no device event. None on the CPU."""
-    if not card.cuda:
-        return None
-    torch.cuda.synchronize(card.device)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+@dataclass
+class Profile:
+    """One profiled run of a stage's call: the device busy ms a call (None on
+    the CPU), and, by name of the program's spans recorded in it, host ms a
+    call (``phase_ms``) and the device's idle ms a call by the innermost
+    span open (``phase_idle_ms``; None on the CPU)."""
+
+    busy_ms: Optional[float]
+    phase_ms: Dict[str, float]
+    phase_idle_ms: Optional[Dict[str, float]]
+
+
+def profile_calls(fn: Callable[[], object], card: Card, calls: int = 1) -> Profile:
+    """``calls`` back-to-back calls of ``fn`` under torch.profiler: busy time
+    is the union of their kernels' and copies' intervals (annotations left
+    out), over ``calls``. Raises on the card when the capture holds no
+    device event."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if card.cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(card.device)
+    clear_spans()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.time_ns()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize(card.device)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    if not spans:
+        if card.cuda:
+            torch.cuda.synchronize(card.device)
+        t1 = time.time_ns()
+    spans = recorded_spans()
+    clear_spans()
+    phase_ms: Dict[str, float] = {}
+    for s in spans:
+        phase_ms[s.name] = phase_ms.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e6 / calls
+    if not card.cuda:
+        return Profile(None, phase_ms, None)
+    events = device_intervals(prof)
+    if not events:
         raise RuntimeError(f"the profiler saw no device event in {calls} calls on the card")
-    total, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3 / calls
+    idle = {k: v / 1e6 / calls for k, v in idle_by_span(events, spans, t0, t1).items()}
+    return Profile(busy_ns(events) / 1e6 / calls, phase_ms, idle)
 
 
 def timed(card: Card, step: Callable, state, warmup: int, iters: int):
-    """(seconds a call, device busy ms a call, last state) of the chained
+    """(seconds a call, ``Profile``, last state) of the chained
     ``state = step(state)``: ``warmup`` calls, the differential windows of
     ``median_window_dt``, then one profiled call, or as many calls as fill
     PROFILE_WINDOW_S where a call is shorter (the profiler can miss every
@@ -191,13 +215,13 @@ def timed(card: Card, step: Callable, state, warmup: int, iters: int):
         torch.cuda.synchronize(card.device)
     dt, state = median_window_dt(step, state, iters=iters)
     calls = max(1, math.ceil(PROFILE_WINDOW_S / dt))
-    return dt, busy_ms(lambda: step(state), card, calls), state
+    return dt, profile_calls(lambda: step(state), card, calls), state
 
 
-def line(card: Card, metric: str, value: float, unit: str, vs_baseline, dt: float,
+def line(card: Card, metric: str, value: float, unit: str, dt: float,
          busy: Optional[float], iters: int, **extra) -> dict:
     """One metric line with the fields every line carries."""
-    record = {"metric": metric, "value": value, "unit": unit, "vs_baseline": vs_baseline,
+    record = {"metric": metric, "value": value, "unit": unit,
               "ms_per_call": dt * 1e3, "device_busy_ms": busy,
               "idle_share": None if busy is None else 1.0 - busy / (dt * 1e3),
               "device": card.name, "power_limit_w": card.power_limit_w,
@@ -208,9 +232,7 @@ def line(card: Card, metric: str, value: float, unit: str, vs_baseline, dt: floa
 
 
 def _rtf_line(card, metric, audio_s, dt, busy, iters, **extra):
-    rtf = audio_s / dt
-    return line(card, metric, rtf, "x_realtime", rtf / V100_BEST_RTF_RECIPROCAL, dt, busy,
-                iters, **extra)
+    return line(card, metric, audio_s / dt, "x_realtime", dt, busy, iters, **extra)
 
 
 def _segment(config) -> int:
@@ -241,8 +263,9 @@ def bench_batch1(card: Card, generator, config, warmup: int = 40, iters: int = 2
     card.reset_memory()
     x = _wave(card, (1, 1, _segment(config)), seed=0)
     hf = _highcut(card, config, 1)
-    dt, busy, _ = timed(card, _chained(generator, hf), x, warmup, iters)
-    return _rtf_line(card, "rtf_reciprocal_48k_batch1", config.DATA.SEGMENT, dt, busy, iters)
+    dt, prof, _ = timed(card, _chained(generator, hf), x, warmup, iters)
+    return _rtf_line(card, "rtf_reciprocal_48k_batch1", config.DATA.SEGMENT, dt, prof.busy_ms,
+                     iters)
 
 
 def bench_stacked(card: Card, generator, config, warmup: int = 40, iters: int = 20) -> dict:
@@ -258,9 +281,9 @@ def bench_stacked(card: Card, generator, config, warmup: int = 40, iters: int = 
     card.reset_memory()
     x = _wave(card, (1, 1, _segment(config)), seed=0)
     hf = _highcut(card, config, 1)
-    dt, busy, _ = timed(card, _chained(stacked, hf), x, warmup, iters)
-    return _rtf_line(card, "rtf_reciprocal_48k_batch1_stacked", config.DATA.SEGMENT, dt, busy,
-                     iters)
+    dt, prof, _ = timed(card, _chained(stacked, hf), x, warmup, iters)
+    return _rtf_line(card, "rtf_reciprocal_48k_batch1_stacked", config.DATA.SEGMENT, dt,
+                     prof.busy_ms, iters)
 
 
 def bench_full_clip(card: Card, generator, config, n_segments: int = 3, warmup: int = 20,
@@ -281,9 +304,9 @@ def bench_full_clip(card: Card, generator, config, n_segments: int = 3, warmup: 
             out = generator(segments, hf).reshape(1, 1, n_segments, seg)
             return x + 1e-6 * fold_audio(out, t, seg, overlap)
 
-    dt, busy, _ = timed(card, step, x, warmup, iters)
+    dt, prof, _ = timed(card, step, x, warmup, iters)
     audio_s = t / config.DATA.TARGET_SR
-    return _rtf_line(card, "rtf_reciprocal_48k_fullclip_device", audio_s, dt, busy, iters,
+    return _rtf_line(card, "rtf_reciprocal_48k_fullclip_device", audio_s, dt, prof.busy_ms, iters,
                      clip_seconds=audio_s, n_segments=n_segments)
 
 
@@ -299,39 +322,39 @@ def bench_batched(card: Card, generator, config, batch: int = 32, warmup: int = 
     hf = _highcut(card, config, batch)
     with torch.no_grad():
         flops = matmul_flops(generator, x, hf)
-    dt, busy, _ = timed(card, _chained(generator, hf), x, warmup, iters)
+    dt, prof, _ = timed(card, _chained(generator, hf), x, warmup, iters)
     rate = flops / dt
     return _rtf_line(card, f"rtf_reciprocal_48k_batch{batch}", batch * config.DATA.SEGMENT,
-                     dt, busy, iters, segments_per_s=batch / dt, matmul_flops=flops,
+                     dt, prof.busy_ms, iters, segments_per_s=batch / dt, matmul_flops=flops,
                      tensor_tflops=rate / 1e12,
                      **{f"mfu_pct_{card.label}_bf16": card.share(rate, "bf16_flops")})
 
 
-def train_config(batch_size: int = 8, gan: bool = True, losses=None):
-    """The training stage's configuration: the flagship at ``batch_size``
-    with FUSE_STREAMS on (the decoders of both streams in one pass, the
-    same per-sample math), as bench.py:bench_train measures it."""
-    c = flagship_config(batch_size=batch_size, gan=gan)
+def train_config(batch_size: int = 8):
+    """The training stage's configuration: the flagship with the MPD at
+    ``batch_size`` with FUSE_STREAMS on (the decoders of both streams in one
+    pass, the same per-sample math), as bench.py:bench_train measures it."""
+    c = flagship_config(batch_size=batch_size, gan=True)
     c.MODEL.VSSM.FUSE_STREAMS = True
-    if losses is not None:
-        c.TRAIN.LOSSES.GEN = list(losses)
     return c
 
 
-def train_step_dt(card: Card, config, warmup: int = 10, iters: int = 10):
-    """(seconds a step, device busy ms of one step) of the port's Trainer
-    step for ``config`` on one batch of its synthetic corpus, the models'
-    states updated in place by every step, so that each step is distinct
-    and consumes the last (bench.py:_train_step_dt)."""
+def bench_train(card: Card, batch_size: int = 8, warmup: int = 10, iters: int = 10,
+                config_fn: Callable = train_config) -> dict:
+    """The GAN train step of the port's Trainer (``config_fn(batch_size)``)
+    on one batch of its synthetic corpus, the models' states updated in
+    place by every step, so that each step is distinct and consumes the last
+    (bench.py:bench_train), with the phase split of its profiled call."""
     from .data import DataPipeline, DegradingSampler, SyntheticVCTK
     from .data.pipeline import batch_to_device
     from .models import get_discriminators, get_generator
     from .train import Trainer
 
-    batch = config.DATA.BATCH_SIZE
-    ds = SyntheticVCTK(n_items=batch, sr=config.DATA.TARGET_SR,
+    card.reset_memory()
+    config = config_fn(batch_size)
+    ds = SyntheticVCTK(n_items=batch_size, sr=config.DATA.TARGET_SR,
                        duration=config.DATA.SEGMENT + 0.01)
-    loader = DataPipeline(DegradingSampler(ds, config, training=True), batch_size=batch,
+    loader = DataPipeline(DegradingSampler(ds, config, training=True), batch_size=batch_size,
                           num_workers=2)
     models = {"generator": get_generator(config, card.device),
               **get_discriminators(config, card.device)}
@@ -347,36 +370,12 @@ def train_step_dt(card: Card, config, warmup: int = 10, iters: int = 10):
             trainer.gen_state, trainer.disc_states, device_batch, rng)
         return metrics["total_loss"]
 
-    dt, busy, loss = timed(card, step, torch.zeros((), device=card.device), warmup, iters)
+    dt, prof, loss = timed(card, step, torch.zeros((), device=card.device), warmup, iters)
     if not bool(torch.isfinite(loss)):
         raise FloatingPointError(f"non-finite training loss {float(loss)}")
-    return dt, busy
-
-
-def bench_train(card: Card, batch_size: int = 8, warmup: int = 10, iters: int = 10,
-                config_fn: Callable = train_config) -> dict:
-    """The GAN train step, and its decomposition by subtraction: the same
-    step without the GAN (generator + L1 + STFT loss) and with the L1 loss
-    alone (bench.py:bench_train). ``config_fn(batch_size, gan, losses)``
-    gives each configuration."""
-    card.reset_memory()
-    cfg = config_fn(batch_size, True, None)
-    dt, busy = train_step_dt(card, cfg, warmup, iters)
-    peak = card.peak_memory_gb()
-    dt_nogan, busy_nogan = train_step_dt(card, config_fn(batch_size, False, None), warmup, iters)
-    dt_l1, busy_l1 = train_step_dt(card, config_fn(batch_size, False, ["l1"]), warmup, iters)
-    audio_s = batch_size * cfg.DATA.SEGMENT
-    record = line(card, f"train_rt_factor_48k_MPD_batch{batch_size}", audio_s / dt,
-                  "x_realtime", None, dt, busy, iters, fuse_streams=True,
-                  decomposition_ms={"generator_fwd_bwd_opt": dt_l1 * 1e3,
-                                    "multi_res_stft_loss": (dt_nogan - dt_l1) * 1e3,
-                                    "mpd_2fwd_plus_dstep": (dt - dt_nogan) * 1e3})
-    record["peak_memory_gb"] = peak
-    if busy is not None:
-        record["decomposition_busy_ms"] = {
-            "generator_fwd_bwd_opt": busy_l1, "multi_res_stft_loss": busy_nogan - busy_l1,
-            "mpd_2fwd_plus_dstep": busy - busy_nogan}
-    return record
+    return line(card, f"train_rt_factor_48k_MPD_batch{batch_size}",
+                batch_size * config.DATA.SEGMENT / dt, "x_realtime", dt, prof.busy_ms, iters,
+                fuse_streams=True, phase_ms=prof.phase_ms, phase_idle_ms=prof.phase_idle_ms)
 
 
 def scan_roofline_bytes(batch: int, l: int, kd: int, k: int = K, itemsize: int = 2,
@@ -463,12 +462,12 @@ def bench_scan_roofline(card: Card, batch: int = 8, l: int = 16384, kd: int = 12
     records = []
     for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
         card.reset_memory()
-        dt, busy, _ = timed(card, fn, s["bs"], warmup, iters)
+        dt, prof, _ = timed(card, fn, s["bs"], warmup, iters)
         rate = nbytes[name] / dt
         pct = card.share(rate, "hbm_bytes_per_s")
         unit = f"pct_of_{card.label}" + (f"_{peak / 1e9:.0f}GBs" if peak else "")
-        records.append(line(card, f"scan_{name}_hbm_roofline_pct", pct, unit,
-                            None if pct is None else pct / 100.0, dt, busy, iters,
+        records.append(line(card, f"scan_{name}_hbm_roofline_pct", pct, unit, dt, prof.busy_ms,
+                            iters,
                             eff_gbs=rate / 1e9, bytes=nbytes[name],
                             shape=f"({batch},{l},{kd})_bf16"))
     return records

@@ -11,17 +11,31 @@ analysis has no counterpart here and is not ported.
 which cancels every per-window constant (the synchronisation, the first
 calls' ramp). On the card each window is timed by CUDA events and ends in
 ``torch.cuda.synchronize()``; on the CPU by ``time.perf_counter``.
+
+Spans: ``span(name, **counts)`` marks a phase of a request or a step (the
+Inferencer's and the train step's phases, the Trainer's loop). It records
+only while a ``torch.profiler`` is collecting; otherwise it is one check
+and a shared no-op object. A recorded span is a ``Span`` on
+``time.time_ns()``, the clock of the profiler's events, and a
+``record_function`` range named ``vmasr/<name>`` in the profiler's trace.
+``recorded_spans()`` reads them, ``clear_spans()`` drops them;
+``device_intervals`` reads a finished profiler's kernels and copies, and
+``busy_ns`` and ``idle_by_span`` take the device's busy time and its idle
+time by the innermost span open.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -240,6 +254,161 @@ def profile_trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+SPAN_PREFIX = "vmasr/"
+
+
+class Span(NamedTuple):
+    """One recorded phase. ``parent`` is the enclosing span's ``id`` (0 for
+    an outermost span); ``group`` is the id of the outermost span it lies in,
+    the request or step it belongs to. Times are ``time.time_ns()``, the
+    clock the profiler's events carry. ``counts``: the keywords given to
+    ``span``."""
+
+    name: str
+    id: int
+    parent: int
+    group: int
+    start_ns: int
+    end_ns: int
+    counts: dict
+
+
+class _Off:
+    """The span of a call made while no profiler collects: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_SPANS: List[Span] = []
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # each thread's stack of open spans
+
+
+class _On:
+    __slots__ = ("name", "counts", "id", "parent", "group", "start_ns", "range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name, self.counts = name, counts
+
+    def __enter__(self):
+        stack = _OPEN.__dict__.setdefault("stack", [])
+        self.id = next(_IDS)
+        self.parent, self.group = (stack[-1].id, stack[-1].group) if stack else (0, self.id)
+        stack.append(self)
+        self.range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.start_ns = time.time_ns()
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        end = time.time_ns()
+        _OPEN.stack.pop()
+        _SPANS.append(Span(self.name, self.id, self.parent, self.group, self.start_ns, end,
+                           self.counts))
+        return False
+
+
+def span(name: str, **counts):
+    """A context manager over one phase ``name`` of the calling thread. While
+    a ``torch.profiler`` collects, it records a ``Span`` (with ``counts``)
+    and enters ``record_function("vmasr/" + name)``; otherwise it returns
+    one shared object that does nothing."""
+    if not _profiler_enabled():
+        return _OFF
+    return _On(name, counts)
+
+
+def recorded_spans() -> List[Span]:
+    """The spans recorded so far, in the order they ended (not cleared)."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
+
+
+def device_intervals(prof) -> List[Tuple[int, int]]:
+    """(start ns, end ns) of every kernel and copy a finished profiler saw on
+    the card, sorted; the annotations the profiler mirrors onto the device
+    are left out. Read from the raw events: ``prof.events()`` builds a tree
+    of every host op, which takes tens of seconds for a few training steps."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation() \
+                and e.end_ns() > e.start_ns():
+            out.append((e.start_ns(), e.end_ns()))
+    return sorted(out)
+
+
+def _merged(intervals: Iterable[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    out: List[List[int]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def busy_ns(intervals: Iterable[Tuple[int, int]]) -> int:
+    """Length of the union of the intervals."""
+    return sum(e - s for s, e in _merged(intervals))
+
+
+def _innermost(spans: List[Span], start: int, end: int) -> List[Tuple[int, int, str]]:
+    """[start, end] cut into pieces, each named by the innermost span open
+    over it (the latest to start; of those, the first to end), "outside"
+    where none is."""
+    cuts = sorted({start, end, *(t for s in spans for t in (s.start_ns, s.end_ns)
+                                 if start < t < end)})
+    pieces = []
+    for a, b in zip(cuts, cuts[1:]):
+        open_ = [(s.start_ns, -s.end_ns, s.name) for s in spans
+                 if s.start_ns <= a and s.end_ns >= b]
+        pieces.append((a, b, max(open_)[2] if open_ else "outside"))
+    return pieces
+
+
+def idle_by_span(intervals: Iterable[Tuple[int, int]], spans: List[Span], start: int,
+                 end: int) -> Dict[str, int]:
+    """The card's idle ns within [start, end] by span name: each idle ns goes
+    to the innermost span open at that ns ("outside" where none is), so a
+    gap that crosses spans is split between them."""
+    pieces = _innermost(spans, start, end)
+    out: Dict[str, int] = {}
+    t, i = start, 0
+
+    def give(a, b):
+        nonlocal i
+        while i < len(pieces) and pieces[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(pieces) and pieces[j][0] < b:
+            lo, hi = max(a, pieces[j][0]), min(b, pieces[j][1])
+            if hi > lo:
+                out[pieces[j][2]] = out.get(pieces[j][2], 0) + hi - lo
+            j += 1
+
+    for s, e in _merged(intervals):
+        s, e = max(s, start), min(e, end)
+        if e <= s:
+            continue
+        if s > t:
+            give(t, s)
+        t = max(t, e)
+    if end > t:
+        give(t, end)
+    return out
 
 
 def debug_nan_context():

@@ -3,7 +3,9 @@ vm_asr_tpu/train/inferencer.py; reference trainer/inferencer.py:16-237).
 
 Loads a wav, resamples it to the target rate, mono-mixes, pads it with white
 noise to a segment multiple, runs the (segmented) forward and writes
-``<stem>_enhanced.wav``.
+``<stem>_enhanced.wav``. Under a profiler a request records the spans
+(``core.profiling.span``) request > load, forward > (unfold, generator per
+bucket forward, fold), save.
 
 Reference quirk kept: ``highcut`` is computed *after* resampling to the
 target rate, so it is the full band (1 + n_fft // 2) whenever the tag's
@@ -23,6 +25,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.logging import create_logger
+from ..core.profiling import span
 from ..dsp import fold_audio, load_wav, resample_audio, save_wav, unfold_audio
 from .steps import bucketed_forward, make_forward_fn
 
@@ -78,31 +81,37 @@ class Inferencer:
         overlap = self.config.INFERENCE.OVERLAP
         t = x.shape[-1]
         if t <= seg_len:
-            return self.forward(x, hf)
-        segments = unfold_audio(x, seg_len, overlap)
+            with span("generator", bucket=1, segments=1):
+                return self.forward(x, hf)
+        with span("unfold"):
+            segments = unfold_audio(x, seg_len, overlap)
         s = segments.shape[2]
         out = bucketed_forward(
             self.forward, segments.reshape(s, 1, seg_len), hf.expand(s)
         ).reshape(1, 1, s, seg_len)
-        return fold_audio(out, t, seg_len, overlap)
+        with span("fold"):
+            return fold_audio(out, t, seg_len, overlap)
 
     def infer_file(self, file_path: str, output_dir: Optional[str] = None,
                    quiet: bool = False) -> Optional[torch.Tensor]:
-        if not os.path.exists(file_path):
-            self.logger.error(f"File not found: {file_path}")
-            return None
-        output_dir = output_dir or self.output_dir
-        os.makedirs(output_dir, exist_ok=True)
+        with span("request"):
+            if not os.path.exists(file_path):
+                self.logger.error(f"File not found: {file_path}")
+                return None
+            output_dir = output_dir or self.output_dir
+            os.makedirs(output_dir, exist_ok=True)
 
-        x, hf, _pad = self.load_input(file_path)
-        t0 = time.time()
-        wave_out = self.forward_chunked(x, hf)
-        audio = wave_out[0, 0].cpu().numpy()  # waits for the device
-        if not quiet:
-            self.logger.info(f"Processing completed in {time.time() - t0:.2f}s")
-
-        out_path = os.path.join(output_dir, f"{Path(file_path).stem}_enhanced.wav")
-        save_wav(out_path, audio, self.target_sr)
+            with span("load"):
+                x, hf, _pad = self.load_input(file_path)
+            t0 = time.time()
+            with span("forward"):
+                wave_out = self.forward_chunked(x, hf)
+            with span("save"):
+                audio = wave_out[0, 0].cpu().numpy()  # waits for the device
+                if not quiet:
+                    self.logger.info(f"Processing completed in {time.time() - t0:.2f}s")
+                out_path = os.path.join(output_dir, f"{Path(file_path).stem}_enhanced.wav")
+                save_wav(out_path, audio, self.target_sr)
         if not quiet:
             self.logger.info(f"Enhanced audio saved to {out_path}")
         return wave_out

@@ -9,7 +9,12 @@ gradient, taken over its own parameters only, and its update; then each
 discriminator's loss on real and on the detached fake from before the
 generator's update (two calls, each advancing the power iteration), with
 GAN_LOSS_TYPE wgan-gp plus the gradient penalty, its gradient and update;
-then the metrics. The metric names are the JAX package's.
+then the metrics. The metric names are the JAX package's. Under a profiler
+the step records its phases as spans (``core.profiling.span``): step >
+generator, gen_loss, gen_backward, gen_update, then disc_loss,
+disc_backward, disc_update for each discriminator, then metrics; and each
+bucket forward of ``bucketed_forward`` a ``generator`` span with its bucket
+size and real segments.
 
 Under data parallelism (``mesh`` with dp > 1) each rank runs the step on its
 rows of the global batch (``batch["rows"]``, from ``parallel.shard_batch``):
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import losses as L
+from ..core.profiling import span
 from ..metrics import get_metrics
 from ..parallel import global_rows, mean_, rand_rows
 
@@ -150,17 +156,19 @@ def make_train_step(config, generator: torch.nn.Module,
 
     def gen_loss_fn(x, y, hf, rng):
         generator.train()
-        wave_out = generator(x, hf, generator=rng)
-        terms = _waveform_terms(gen_losses, stft_kwargs, wave_out, y)
-        if gan:
-            for name in disc_names:
-                _, y_g, f_r, f_g = disc_forward(name, y, wave_out, update_stats=False)
-                if not adv.ONLY_FEATURE_LOSS:
-                    terms[f"adversarial_{name}"] = L.generator_adversarial_loss(y_g, gan_type)
-                if not adv.ONLY_ADVERSARIAL_LOSS:
-                    terms[f"features_{name}"] = adv.FEATURE_LOSS_LAMBDA * \
-                        L.feature_matching_loss(f_r, f_g)
-        return sum(terms.values()), wave_out, terms
+        with span("generator"):
+            wave_out = generator(x, hf, generator=rng)
+        with span("gen_loss"):
+            terms = _waveform_terms(gen_losses, stft_kwargs, wave_out, y)
+            if gan:
+                for name in disc_names:
+                    _, y_g, f_r, f_g = disc_forward(name, y, wave_out, update_stats=False)
+                    if not adv.ONLY_FEATURE_LOSS:
+                        terms[f"adversarial_{name}"] = L.generator_adversarial_loss(y_g, gan_type)
+                    if not adv.ONLY_ADVERSARIAL_LOSS:
+                        terms[f"features_{name}"] = adv.FEATURE_LOSS_LAMBDA * \
+                            L.feature_matching_loss(f_r, f_g)
+            return sum(terms.values()), wave_out, terms
 
     def disc_loss(name, y, fake, alpha):
         penalty = 0.0
@@ -188,13 +196,17 @@ def make_train_step(config, generator: torch.nn.Module,
         return grads
 
     def train_step(gen_state, disc_states, batch, rng: torch.Generator):
-        with _rows_of(batch):
+        with span("step"), _rows_of(batch):
             return step(gen_state, disc_states, batch, rng)
 
     def step(gen_state, disc_states, batch, rng):
         x, y, hf = batch["wave_input"], batch["wave_target"], batch["highcut"]
         g_total, wave_out, g_terms = gen_loss_fn(x, y, hf, rng)
-        gen_state.apply_gradients(grads_of(g_total, gen_state.params))
+        with span("gen_backward"):
+            grads = grads_of(g_total, gen_state.params)
+        with span("gen_update"):
+            gen_state.apply_gradients(grads)
+        del grads
 
         metrics = {"total_loss": g_total.detach()}
         metrics.update({f"generator/{k}": v.detach() for k, v in g_terms.items()})
@@ -206,26 +218,32 @@ def make_train_step(config, generator: torch.nn.Module,
                 else [None] * len(disc_names)
             for name, alpha in zip(disc_names, alphas):
                 ds = disc_states[name]
-                d_loss, gaps = disc_loss(name, y, fake, alpha)
-                ds.apply_gradients(grads_of(d_loss, ds.params))
+                with span("disc_loss", disc=name):
+                    d_loss, gaps = disc_loss(name, y, fake, alpha)
+                with span("disc_backward", disc=name):
+                    grads = grads_of(d_loss, ds.params)
+                with span("disc_update", disc=name):
+                    ds.apply_gradients(grads)
+                del grads
                 metrics[f"discriminator/{name}"] = d_loss.detach()
                 metrics[f"disc_gap/{name}"] = gaps.detach()  # the vector, until reduced
                 metrics[f"disc_gap/{name}_max"] = None
                 gaps_of.append(name)
                 d_total = d_total + d_loss.detach()
             metrics["total_disc_loss"] = d_total
-        with torch.no_grad():
-            out_flat, y_flat = wave_out.detach()[:, 0, :], y[:, 0, :]
-            for mname, fn in metric_fns.items():
-                metrics[mname] = fn(out_flat, y_flat, hf=hf)
-        order = list(metrics)
-        metrics = _mean_metrics({k: v for k, v in metrics.items() if v is not None}, mesh,
-                                y.device)
-        # The max over the sub-discriminators of the gaps of the global batch.
-        for name in gaps_of:
-            gaps = metrics[f"disc_gap/{name}"]
-            metrics[f"disc_gap/{name}"] = gaps.mean()
-            metrics[f"disc_gap/{name}_max"] = gaps.abs().max()
+        with span("metrics"):
+            with torch.no_grad():
+                out_flat, y_flat = wave_out.detach()[:, 0, :], y[:, 0, :]
+                for mname, fn in metric_fns.items():
+                    metrics[mname] = fn(out_flat, y_flat, hf=hf)
+            order = list(metrics)
+            metrics = _mean_metrics({k: v for k, v in metrics.items() if v is not None}, mesh,
+                                    y.device)
+            # The max over the sub-discriminators of the gaps of the global batch.
+            for name in gaps_of:
+                gaps = metrics[f"disc_gap/{name}"]
+                metrics[f"disc_gap/{name}"] = gaps.mean()
+                metrics[f"disc_gap/{name}_max"] = gaps.abs().max()
         return gen_state, disc_states, {k: metrics[k] for k in order}
 
     train_step.gen_loss_fn = gen_loss_fn
@@ -303,6 +321,7 @@ def bucketed_forward(forward: Callable, seg_batch: torch.Tensor,
         if rem < b:
             chunk = F.pad(chunk, (0, 0, 0, 0, 0, b - rem))
             hfc = torch.cat([hfc, hfc[-1:].expand(b - rem)])
-        outs.append(forward(chunk, hfc)[:rem])
+        with span("generator", bucket=b, segments=rem):
+            outs.append(forward(chunk, hfc)[:rem])
         i += rem
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)

@@ -24,7 +24,10 @@ are fetched at PRINT_FREQ and at the epoch's end, so the host does not wait
 for the card on every step. ``timings`` holds each epoch's host-clock
 figures (seconds per step from one step's start to the next's, the time the
 loop waited for the data pipeline, the epoch, validation and checkpoint
-writes, and the profiled steps' device idle share when PROFILE_STEPS is on).
+writes, and, when PROFILE_STEPS is on, the profiled steps' device busy time,
+idle share and idle ms by the innermost span open (``core.profiling``:
+the step's phases and the loop's data_wait, to_device and fetch; the
+epoch's validate and checkpoint are spans too).
 """
 
 from __future__ import annotations
@@ -40,7 +43,15 @@ import torch
 
 from ..core.checkpoint import CheckpointManager
 from ..core.logging import create_logger
-from ..core.profiling import count_params
+from ..core.profiling import (
+    busy_ns,
+    clear_spans,
+    count_params,
+    device_intervals,
+    idle_by_span,
+    recorded_spans,
+    span,
+)
 from ..core.tracker import MetricTracker
 from ..core.visualization import TensorboardWriter
 from ..data.pipeline import batch_to_device
@@ -73,14 +84,16 @@ def _fetch(metrics: List[Dict[str, Any]]) -> List[Dict[str, float]]:
     return [dict(zip(keys, row)) for row in rows.tolist()]
 
 
-def _busy_ms(events) -> float:
-    """Length of the union of the device events' intervals, in ms."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(events):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
+def _waited(loader):
+    """The loader's batches, each wait for the next inside a ``data_wait``
+    span."""
+    batches, end = iter(loader), object()
+    while True:
+        with span("data_wait"):
+            batch = next(batches, end)
+        if batch is end:
+            return
+        yield batch
 
 
 class Trainer:
@@ -158,7 +171,8 @@ class Trainer:
             log = self.train_epoch(epoch, timing)
             if self.valid_loader is not None:
                 t0 = time.perf_counter()
-                val_log = self._valid_epoch(epoch)
+                with span("validate"):
+                    val_log = self._valid_epoch(epoch)
                 timing["valid_s"] = time.perf_counter() - t0
                 log.update(**{f"val_{k}": v for k, v in val_log.items()})
 
@@ -186,8 +200,9 @@ class Trainer:
                     break
 
             t0 = time.perf_counter()
-            self._save(epoch, best)
-            self.ckpt.barrier()
+            with span("checkpoint"):
+                self._save(epoch, best)
+                self.ckpt.barrier()
             timing["save_ms"] = (time.perf_counter() - t0) * 1e3
             timing["epoch_s"] = time.perf_counter() - t_epoch
             self.logger.info(f"Epoch {epoch} timing {json.dumps(timing)}")
@@ -236,28 +251,30 @@ class Trainer:
         profile_steps = int(self.config.get("PROFILE_STEPS", 0) or 0)
         timing.update(step_s=[], data_wait_s=[])
         last_profiled = min(profile_steps, n_batches - 1)
-        prof, prof_t0, device_batch = None, 0.0, None
+        prof, prof_t0, device_batch = None, 0, None
         t0 = t_prev = time.perf_counter()
-        for i, batch in enumerate(self.train_loader):
+        for i, batch in enumerate(_waited(self.train_loader)):
             timing["data_wait_s"].append(time.perf_counter() - t_prev)
             if profile_steps and i == 1 and epoch == self.start_epoch and self.rank0:
                 self._sync()
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.start()
-                prof_t0 = time.perf_counter()
-            device_batch = self._shard(batch, self.train_loader)
+                prof_t0 = time.time_ns()
+            with span("to_device"):
+                device_batch = self._shard(batch, self.train_loader)
             self.gen_state, self.disc_states, metrics = self.train_step(
                 self.gen_state, self.disc_states, device_batch, rng)
             pending.append(metrics)
             if prof is not None and i == last_profiled:
                 self._sync()
-                wall_ms = (time.perf_counter() - prof_t0) * 1e3
+                window = (prof_t0, time.time_ns())
                 prof.stop()
-                self._record_profile(prof, timing, wall_ms, last_profiled)
+                self._record_profile(prof, timing, window, last_profiled)
                 prof = None
             if i % self.config.PRINT_FREQ == 0 or i == n_batches - 1:
-                m = _fetch([metrics])[0]
+                with span("fetch"):
+                    m = _fetch([metrics])[0]
                 self.logger.info(
                     f"Epoch {epoch} [{i + 1}/{n_batches}] loss={m['total_loss']:.4f} "
                     f"lsd={m.get('lsd', float('nan')):.4f} "
@@ -266,7 +283,9 @@ class Trainer:
             timing["step_s"].append(now - t_prev)
             t_prev = now
         timing["steps"] = len(pending)
-        for m in _fetch(pending):
+        with span("fetch"):
+            fetched = _fetch(pending)
+        for m in fetched:
             for k, v in m.items():
                 self.train_metrics.update(k, v)
         self.writer.set_step(epoch, "train")
@@ -279,20 +298,24 @@ class Trainer:
             self._log_outputs(device_batch, wave_out)
         return self.train_metrics.result()
 
-    def _record_profile(self, prof, timing, wall_ms, steps):
-        """Device busy time of the profiled steps and its idle share of their
-        wall time (which the profiler itself lengthens); the trace goes to
-        OUTPUT/profile."""
-        events = [(e.time_range.start, e.time_range.end) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
+    def _record_profile(self, prof, timing, window, steps):
+        """Device busy time of the profiled steps, its idle share of their
+        wall time ``window`` (``time.time_ns()`` at its ends; the profiler
+        itself lengthens it) and the idle ms by the innermost span open; the
+        trace goes to OUTPUT/profile. The spans are dropped after."""
+        wall_ms = (window[1] - window[0]) / 1e6
+        events = device_intervals(prof)
         out = os.path.join(self.config.OUTPUT, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json.gz"))
-        busy = _busy_ms(events) if events else None
+        busy = busy_ns(events) / 1e6 if events else None
+        idle = None if busy is None else {
+            k: v / 1e6 for k, v in idle_by_span(events, recorded_spans(), *window).items()}
+        clear_spans()
         timing["profile"] = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
                                  device_events=len(events),
-                                 idle_share=None if busy is None else 1 - busy / wall_ms)
+                                 idle_share=None if busy is None else 1 - busy / wall_ms,
+                                 idle_ms_by_span=idle)
         self.logger.info(f"profile of {steps} step(s): {json.dumps(timing['profile'])}; "
                          f"trace written to {out}")
 
