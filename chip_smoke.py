@@ -32,7 +32,14 @@ raising on failure:
    stream; each must end before the hold does, on the 4 SMs left, with the
    bits of its uncontended run (the look-back's tile ticket,
    csrc/scan_common.cuh).
-3c. look-back window: the three one-launch scans' device time per train
+3c. look-back in CUDA graphs: each one-launch scan captured in a graph on a
+   side stream at main-path shapes and replayed three times with fresh
+   inputs copied in before each replay, each replay bitwise the eager call
+   on the same inputs; and each across the look-back's epoch (kept on the
+   device, csrc/scan_common.cuh): a call at the last epoch gives the bits
+   of the call before it, also on a capped grid, and leaves the workspace
+   zeroed, and the call after it (epoch 1) gives them again.
+3d. look-back window: the three one-launch scans' device time per train
    step and per batch-1 forward with the look-back's checkpoint spacing W
    at 8, 16, 32 and 64 (each wrapper's own W is the one it ships).
 4. model: one flagship segment in fp32 through the generator with the
@@ -42,8 +49,15 @@ raising on failure:
    scan in fp64 as the witness both fp32 routes are held to.
 6. serve: Inferencer.infer_file on three synthetic 16 kHz clips (tag
    16000_48000) with the full flagship generator (dims 16, depths 2-2-2-2,
-   n_fft 1024, bf16 compute, seeded random weights), with launch counts.
-7. profile: one batch-1 forward under torch.profiler.
+   n_fft 1024, bf16 compute, seeded random weights), with launch counts;
+   then its forward (one CUDA graph per bucket, train/steps.py:
+   GraphedForward) at buckets 1, 2, 4 and 8, three calls each (eager on
+   first sight, the capture's replay, a replay) bitwise the generator's
+   eager forward, and two bucket-8 replays read only after both ran; and
+   dsp.istft bitwise torch.istft at the forward's spectra.
+7. profile: one batch-1 forward (a replay) under torch.profiler, and its
+   device kernels against an eager forward's: the same names apart from
+   copies, busy times within 5 %.
 8. train: the flagship GAN train step (batch 4, bf16, MPD, AdamW), 3
    warm-up and 10 timed steps on synthetic speech, with launch counts, then
    one profiled step by kernel (each wrapper's kernels by their exported
@@ -171,6 +185,7 @@ from vm_asr_tpu_torch.core import default_config, load_config, update_config
 from vm_asr_tpu_torch.core.profiling import matmul_flops, model_flops
 from vm_asr_tpu_torch.data import DataPipeline, DegradingSampler, SyntheticVCTK, native
 from vm_asr_tpu_torch.dsp import num_segments, resample_audio, save_wav
+from vm_asr_tpu_torch.dsp.stft import hann_window, istft
 from vm_asr_tpu_torch.models import (
     SS2D,
     BackboneVSSM,
@@ -194,6 +209,7 @@ from vm_asr_tpu_torch.ops import (
     selective_scan_fused_fwd,
     selective_scan_fused_plain,
 )
+from vm_asr_tpu_torch.ops import lookback
 from vm_asr_tpu_torch.ops.build import SOURCES, build, ptxas_info
 from vm_asr_tpu_torch.ops.linear_recurrence import (
     LR_KERNELS,
@@ -294,7 +310,7 @@ KERNEL_NAMES = {"selective_scan_fused": FWD_KERNELS, "selective_scan_fused_bwd":
 # the wrappers' max_ctas): their tiles then arrive in another order, and
 # the result must not change by a bit.
 CAPPED_CTAS = 5
-# The look-back's checkpoint spacings timed in phase 3b.
+# The look-back's checkpoint spacings timed in phase 3d.
 WINDOWS = (8, 16, 32, 64)
 
 
@@ -427,6 +443,37 @@ def by_wrapper(events):
             ms[w] += (e_ - s_) / 1e3
             calls[w] += name in next(iter(KERNEL_NAMES[w].values()))
     return ms, calls
+
+
+def device_scan_calls(fn, want, tries: int = 3):
+    """Each wrapper's scan calls in one call of ``fn`` (after a warm-up
+    call), counted from the device events by their exported names
+    (by_wrapper): what ran on the card, a CUDA graph's replay included,
+    where the wrappers' own counters see only the launches the host
+    issued. A capture that counts other than ``want`` is taken again (the
+    profiler may drop events), at most ``tries`` times; returns the last
+    count."""
+    for _ in range(tries):
+        calls = by_wrapper(device_kernels(fn))[1]
+        got = {w: calls[w] for w in KERNEL_NAMES}
+        if got == want:
+            break
+    return got
+
+
+def issued_forwards(forward) -> int:
+    """The forwards whose kernels the host launched one by one through
+    ``forward`` (train/steps.py: GraphedForward): the eager first call of
+    each signature it saw and the capture of each it captured. A replay
+    launches none of them from the host."""
+    return len(forward.seen) + len(forward.graphs)
+
+
+def forward_counts(forwards: int, fused: int = 30, lr: int = 4) -> dict:
+    """The wrappers' launch counts of ``forwards`` generator forwards of
+    ``fused`` fused and ``lr`` recurrence scans each."""
+    return dict(selective_scan_fused=fused * forwards, selective_scan_fused_bwd=0,
+                linear_recurrence=lr * forwards, linear_recurrence_reverse=0)
 
 
 def cold_ms(fn, reps: int = 11) -> float:
@@ -946,10 +993,9 @@ def cli_phase(smi: str, bare_idle):
                                 "TEST.RESULTS_DIR", str(work / "results")])
         eval_counts = read_counts()
         shapes = {tester._num_segments(r["samples"]) for r in tester.rows}
-        measured = 3 * 3 * tester_module.MEASURE_ITERS  # windows × (N + 2N) forwards
-        forwards = len(tester.rows) + 1 + measured  # clips, one warm-up, the measurement
-        eval_want = dict(selective_scan_fused=30 * forwards, selective_scan_fused_bwd=0,
-                         linear_recurrence=4 * forwards, linear_recurrence_reverse=0)
+        # The clips, a warm-up and the measurement run one signature (bucket
+        # 2): the host launches its eager first call and its capture.
+        eval_want = forward_counts(2)
         with open(work / "results_48kHz.csv") as f:
             table = list(csv.reader(f))
         header = [c.upper() for c in tester_module.CSV_COLUMNS + tester_module.COMPUTE_COLUMNS]
@@ -961,8 +1007,8 @@ def cli_phase(smi: str, bare_idle):
         print(f"cli eval: {len(tester.rows)} clips of {shapes} segments, launches "
               f"{eval_counts}; csv {table}")
         if mode != "eval" or len(tester.rows) != 4 or shapes != {2} or \
-                eval_counts != eval_want or table[0] != header or len(values) != 9 or \
-                not np.isfinite(values).all():
+                issued_forwards(tester.forward) != 2 or eval_counts != eval_want or \
+                table[0] != header or len(values) != 9 or not np.isfinite(values).all():
             raise AssertionError(f"cli eval: want 4 two-segment clips, launches {eval_want} "
                                  f"and one finite 9-column CSV row; got {eval_counts}, {table}")
 
@@ -971,15 +1017,16 @@ def cli_phase(smi: str, bare_idle):
         mode, stats = cli.run(["--cfg", str(CONFIG), "--throughput", "--batch_size", "4",
                                "--opts", "TENSORBOARD.ENABLE", "False", "OUTPUT", str(runs)])
         tp_counts = read_counts()
-        calls = 1 + 2 + 3 * 3 * 10  # first call, warm-up, windows × (N + 2N) at N = 10
+        # First call, warm-up, windows × (N + 2N) at N = 10, of one signature:
+        # the host launches its eager first call and its capture.
+        calls = 1 + 2 + 3 * 3 * 10
         print(f"cli throughput: {stats['segments_per_second']:.2f} segments/s, "
               f"{stats['x_real_time']:.2f}x real time at batch {stats['batch']} "
               f"({stats['seconds_per_call'] * 1e3:.2f} ms a call, CUDA events); launches "
               f"{tp_counts}  [{smi}]")
-        if mode != "throughput" or stats["batch"] != 4 or tp_counts != dict(
-                selective_scan_fused=30 * calls, selective_scan_fused_bwd=0,
-                linear_recurrence=4 * calls, linear_recurrence_reverse=0):
-            raise AssertionError(f"cli throughput: launches {tp_counts} for {calls} calls")
+        if mode != "throughput" or stats["batch"] != 4 or tp_counts != forward_counts(2):
+            raise AssertionError(f"cli throughput: launches {tp_counts} for {calls} calls of "
+                                 f"one signature (want {forward_counts(2)})")
     finally:
         os.chdir(cwd)
     report = dict(sampler=rates, pipeline=dict(batches=n_batches, seconds=pipe_s),
@@ -1216,11 +1263,10 @@ def raw_corpus_phase(smi: str):
     finally:
         os.chdir(cwd)
     segs = {tester._num_segments(r["samples"]) for r in tester.rows}
-    per_clip = sum(segment_bucket_counts(max(segs)).values()) if segs else 0
     keys = len(segment_bucket_counts(max(segs))) if segs and max(segs) > 1 else 1
-    forwards = (len(tester.rows) + 1) * per_clip + keys * 3 * 3 * tester_module.MEASURE_ITERS
-    eval_want = dict(selective_scan_fused=30 * forwards, selective_scan_fused_bwd=0,
-                     linear_recurrence=4 * forwards, linear_recurrence_reverse=0)
+    # Each signature's eager first call and its capture; a replay launches
+    # nothing from the host.
+    eval_want = forward_counts(issued_forwards(tester.forward))
     names = sorted(r["name"] for r in tester.rows)
     rtf = [r["rtf"] for r in tester.rows]
     rtf_c = [r["rtf_compute"] for r in tester.rows]
@@ -1229,6 +1275,7 @@ def raw_corpus_phase(smi: str):
           f"rtf_compute median {statistics.median(rtf_c):.4f}; launches {eval_counts}  [{smi}]")
     if mode != "eval" or len(tester.rows) != RAW_UTTERANCES or len(segs) != 1 or \
             not all(x.startswith("p227_") for x in names) or eval_counts != eval_want or \
+            len(tester.forward.seen) != keys or len(tester.forward.graphs) != keys or \
             not all(np.isfinite([r["lsd"], r["snr"], r["rtf"]]).all() for r in tester.rows):
         raise AssertionError(f"raw eval: want {RAW_UTTERANCES} p227 clips of one length, "
                              f"launches {eval_want}, finite metrics; got {names}, {segs}, "
@@ -1481,9 +1528,8 @@ def single_cli_phase(smi, per_fwd):
                                 str(work / "results")])
         eval_counts = read_counts()
         shapes = {tester._num_segments(row["samples"]) for row in tester.rows}
-        forwards = len(tester.rows) + 1 + 3 * 3 * tester_module.MEASURE_ITERS
-        eval_want = dict(selective_scan_fused=f * forwards, selective_scan_fused_bwd=0,
-                         linear_recurrence=r * forwards, linear_recurrence_reverse=0)
+        # One signature (bucket 2): its eager first call and its capture.
+        eval_want = forward_counts(2, f, r)
         for row in tester.rows:
             print(f"SINGLE cli eval {row['name']}: rtf {row['rtf']:.4f}, rtf_compute "
                   f"{row['rtf_compute']:.4f}, snr {row['snr']:.3f}, lsd {row['lsd']:.3f} "
@@ -1491,6 +1537,7 @@ def single_cli_phase(smi, per_fwd):
         print(f"SINGLE cli eval: {len(tester.rows)} clips of {shapes} segments, launches "
               f"{eval_counts} (derived {eval_want})")
         if mode != "eval" or len(tester.rows) != 2 or shapes != {2} or eval_counts != eval_want \
+                or issued_forwards(tester.forward) != 2 \
                 or not all(np.isfinite(row["lsd"]) for row in tester.rows):
             raise AssertionError(f"SINGLE cli eval: want 2 two-segment clips and launches "
                                  f"{eval_want}; got {shapes}, {eval_counts}")
@@ -2009,17 +2056,17 @@ def stacked_phase(smi, cli_throughput, mpd_step):
             walls, outs = {k: [] for k in servers}, {}
             for order in (("unstacked", "stacked"), ("stacked", "unstacked")):
                 for k in order:
-                    zero_counts()
                     outs[k], wall = serve(servers[k], name)
                     walls[k].append(wall)
-                    counts = read_counts()
-                    fused, lr = (15, 2) if k == "stacked" else (30, 4)
-                    if counts != dict(selective_scan_fused=fused * n_fwd,
-                                      selective_scan_fused_bwd=0, linear_recurrence=lr * n_fwd,
-                                      linear_recurrence_reverse=0):
-                        raise AssertionError(f"serve {name} ({k}): launches {counts}")
-                    if k == "stacked":
-                        served.update(counts)
+            for k, inf in servers.items():
+                # Counted on the device: the forwards replay CUDA graphs.
+                want = forward_counts(n_fwd, *((15, 2) if k == "stacked" else (30, 4)))
+                counts = device_scan_calls(lambda inf=inf: serve(inf, name), want)
+                if counts != want:
+                    raise AssertionError(f"serve {name} ({k}): scan calls on the device "
+                                         f"{counts}, want {want}")
+                if k == "stacked":
+                    served.update(counts)
             diff = ((outs["stacked"] - outs["unstacked"]).abs().max()
                     / outs["unstacked"].abs().max()).item()
             r = dict(name=name, audio_s=sec, forwards=n_fwd, cold_wall_s=cold,
@@ -2069,14 +2116,14 @@ def stacked_phase(smi, cli_throughput, mpd_step):
                                     "4", "--opts", "TEST.RESULTS_DIR", str(work / "results"),
                                     *on])
             eval_counts = read_counts()
-            forwards = len(tester.rows) + 1 + 3 * 3 * tester_module.MEASURE_ITERS
-            want = dict(selective_scan_fused=15 * forwards, selective_scan_fused_bwd=0,
-                        linear_recurrence=2 * forwards, linear_recurrence_reverse=0)
+            # One signature (bucket 2): its eager first call and its capture.
+            want = forward_counts(2, 15, 2)
             for r in tester.rows:
                 print(f"stacked cli eval {r['name']}: rtf {r['rtf']:.4f}, rtf_compute "
                       f"{r['rtf_compute']:.4f}, snr {r['snr']:.3f}, lsd {r['lsd']:.3f}  [{smi}]")
             if mode != "eval" or not isinstance(tester.generator, DualStreamStackedMambaUNet) \
-                    or eval_counts != want or len(tester.rows) != 4 or \
+                    or eval_counts != want or issued_forwards(tester.forward) != 2 or \
+                    len(tester.rows) != 4 or \
                     not all(np.isfinite([r["lsd"], r["snr"]]).all() for r in tester.rows):
                 raise AssertionError(f"stacked cli eval: launches {eval_counts} (want {want})")
             eval_rows = tester.rows
@@ -2103,14 +2150,13 @@ def stacked_phase(smi, cli_throughput, mpd_step):
             tp_counts = read_counts()
     finally:
         os.chdir(cwd)
-    calls = 1 + 2 + 3 * 3 * 10
+    calls = 1 + 2 + 3 * 3 * 10  # of one signature: its eager first call and its capture
     print(f"stacked cli throughput: {stats['segments_per_second']:.2f} segments/s at batch "
           f"{stats['batch']} ({stats['seconds_per_call'] * 1e3:.2f} ms a call, CUDA events); "
           f"unstacked in the cli phase {cli_throughput:.2f}; launches {tp_counts}  [{smi}]")
-    if mode != "throughput" or tp_counts != dict(
-            selective_scan_fused=15 * calls, selective_scan_fused_bwd=0,
-            linear_recurrence=2 * calls, linear_recurrence_reverse=0):
-        raise AssertionError(f"stacked cli throughput: launches {tp_counts} for {calls} calls")
+    if mode != "throughput" or tp_counts != forward_counts(2, 15, 2):
+        raise AssertionError(f"stacked cli throughput: launches {tp_counts} for {calls} calls "
+                             f"of one signature (want {forward_counts(2, 15, 2)})")
     report["cli"] = dict(eval_rows=eval_rows, eval_launches=eval_counts,
                          inference_launches=infer_counts, throughput=stats,
                          throughput_launches=tp_counts, unstacked_throughput=cli_throughput)
@@ -2301,6 +2347,184 @@ def lookback_contention(gen):
                                 lambda: linear_recurrence_reverse(a, h, grad)[0],
                                 linear_recurrence_reverse(a, h, grad)[0]))
     return out
+
+
+EPOCHS = 1 << 30  # the look-back's epochs are 1 .. EPOCHS - 1 (csrc/scan_common.cuh)
+GRAPH_REPLAYS = 3
+
+
+def graph_replays(name, call, make_inputs):
+    """``call`` captured in a CUDA graph on a side stream (after one eager
+    call there, which makes the stream's look-back workspace) and replayed
+    GRAPH_REPLAYS times, fresh inputs (``make_inputs(i)``) copied into the
+    static ones before each replay: each replay's outputs equal, bit for
+    bit, the eager call's on the same inputs on the current stream. Returns
+    the replays checked."""
+    static = make_inputs(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = call(*static)
+    for i in range(1, GRAPH_REPLAYS + 1):
+        fresh = make_inputs(i)
+        for t, f in zip(static, fresh):
+            t.copy_(f)
+        graph.replay()
+        got = [o.clone() for o in out]
+        want = call(*fresh)
+        torch.cuda.synchronize()
+        check_same(f"{name}: replay {i} against the eager call", want, got)
+    return GRAPH_REPLAYS
+
+
+def graphed_forward_check(inferencer):
+    """The Inferencer's forward (one CUDA graph per bucket, train/steps.py:
+    GraphedForward) at buckets 1, 2, 4 and 8: its first call (eager on the
+    capture stream), second (the capture's replay) and third, each bitwise
+    the generator's eager forward on the current stream; then two bucket-8
+    replays on other inputs whose outputs are read only after both ran; and
+    dsp.istft bitwise torch.istft at the forward's spectra."""
+    model, seg = inferencer.generator, inferencer.num_frames_per_seg
+    rows = []
+    for b in (1, 2, 4, 8):
+        x = torch.from_numpy(np.stack([speech_like(seg / 48000, 48000, seed=20 + b + i)[None]
+                                       for i in range(b)])).cuda()
+        hf = torch.full((b,), 170, dtype=torch.int64, device="cuda")
+        with torch.inference_mode():
+            want = model(x, hf)
+        got = [inferencer.forward(x, hf) for _ in range(3)]
+        torch.cuda.synchronize()
+        check_same(f"graphed forward, bucket {b}", (want,), *[(g,) for g in got])
+        rows.append(dict(bucket=b, calls=3, bitwise=True))
+    xs = [torch.from_numpy(np.stack([speech_like(seg / 48000, 48000, seed=40 + 8 * k + i)[None]
+                                     for i in range(8)])).cuda() for k in range(2)]
+    hf = torch.full((8,), 170, dtype=torch.int64, device="cuda")
+    replays = [inferencer.forward(x, hf) for x in xs]
+    with torch.inference_mode():
+        wants = [model(x, hf) for x in xs]
+    torch.cuda.synchronize()
+    check_same("two bucket-8 replays read after both ran", wants, replays)
+    spec = torch.polar(torch.rand(4, 513, 512, device="cuda") + 0.1,
+                       torch.rand(4, 513, 512, device="cuda") * 6.28 - 3.14)
+    window = hann_window(1024, "cuda")
+    check_same("dsp.istft against torch.istft", (istft(spec, 1024, 240, 1024),),
+               (torch.istft(spec, n_fft=1024, hop_length=240, win_length=1024, window=window,
+                            center=True, normalized=True, onesided=True),))
+    print(f"graphed forward: buckets 1, 2, 4, 8, three calls each, and two bucket-8 replays "
+          f"read after both ran, each bitwise the eager forward; dsp.istft bitwise torch.istft")
+    return rows
+
+
+def replay_vs_eager(inferencer, x, hf, tries: int = 3):
+    """A profiled replay's device kernels against a profiled eager forward's
+    on the same inputs: the same kernels by name, apart from the replay's
+    copies (its inputs in, its output out), and busy times within 5 %, so
+    that the benchmark's device-trace metrics see the graph's kernels.
+    Copies and memsets (Memcpy, Memset: a graph's memset reads "Unknown")
+    are left out of the names. Each profiled call starts with a short spin
+    kernel, left out too: the profiler may drop a capture's first device
+    event. A pair whose names differ is taken again (at most ``tries``
+    pairs)."""
+    def profiled(fn):
+        def call():
+            torch.cuda._sleep(1000)
+            return fn()
+        return [e for e in device_kernels(call) if "spin_kernel" not in e[0]]
+
+    def eager():
+        with torch.inference_mode():
+            return inferencer.generator(x, hf)
+
+    for _ in range(tries):
+        replay_events = profiled(lambda: inferencer.forward(x, hf))
+        eager_events = profiled(eager)
+        names = [Counter(n for n, _, _ in ev if not n.startswith(("Memcpy", "Memset")))
+                 for ev in (replay_events, eager_events)]
+        extra, missing = names[0] - names[1], names[1] - names[0]
+        busy = [busy_us(ev) / 1e3 for ev in (replay_events, eager_events)]
+        row = dict(replay_busy_ms=busy[0], eager_busy_ms=busy[1],
+                   replay_events=len(replay_events), eager_events=len(eager_events),
+                   replay_only=dict(extra), eager_only=dict(missing))
+        print(f"profiled replay: {len(replay_events)} device events, busy {busy[0]:.3f} ms; "
+              f"eager forward {len(eager_events)}, busy {busy[1]:.3f} ms; kernels only in the "
+              f"replay {dict(extra)}, only in the eager forward {dict(missing)}")
+        if not missing and not extra:
+            break
+    if missing or extra or not abs(busy[0] - busy[1]) <= 0.05 * busy[1]:
+        raise AssertionError(f"replay against eager: {row}")
+    return row
+
+
+def epoch_wrap(name, call, inputs):
+    """The look-back's epoch on the device across its wrap: a call on a
+    stream whose workspace's epoch word holds EPOCHS - 2 runs at the last
+    epoch and must give the bits of the call before it and leave the
+    workspace zeroed; the next call (epoch 1) gives them again."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = call(*inputs)
+        ws = lookback._workspaces[(torch.device("cuda", torch.cuda.current_device()),
+                                   side.cuda_stream)]
+        ws.view(torch.int64)[0] = EPOCHS - 2
+        last = call(*inputs)
+        zeroed = int(ws.count_nonzero())
+        after = call(*inputs)
+        epoch = int(ws.view(torch.int64)[0])
+    torch.cuda.synchronize()
+    check_same(f"{name}: calls across the epoch's wrap", first, last, after)
+    if zeroed or epoch != 1:
+        raise AssertionError(f"{name}: {zeroed} bytes of the workspace left after the call at "
+                             f"the last epoch, epoch word {epoch} after the next (want 0, 1)")
+
+
+def graph_checks(gen):
+    """The one-launch scans (fused forward, recurrence forward and reverse)
+    in CUDA graphs (graph_replays) at main-path shapes, and across the
+    epoch's wrap (epoch_wrap), also on a capped grid."""
+    rows = []
+
+    def fused_call(*t, max_ctas=0):
+        return selective_scan_fused_fwd(*t, K, max_ctas=max_ctas)[:2]
+
+    for batch, l, kd, dtype in ((1, 16384, 128, torch.bfloat16), (8, 256, 1024, torch.bfloat16),
+                                (TRAIN_BATCH, 4096, 256, torch.float32)):
+        name = f"fused forward {(batch, l, kd)} {str(dtype)[6:]}"
+        base = fused_inputs(batch, l, kd, dtype, gen)[0][:7]
+        # Fresh inputs: u, dts, B and C rolled along L.
+        make = lambda i, base=base: tuple(t.roll(7 * i, 1) if t.dim() == 3 else t  # noqa: E731
+                                          for t in base)
+        rows.append(dict(call=name, replays=graph_replays(name, fused_call, make)))
+        epoch_wrap(name, fused_call, make(0))
+        epoch_wrap(f"{name} on {CAPPED_CTAS} CTAs",
+                   lambda *t: fused_call(*t, max_ctas=CAPPED_CTAS), make(0))
+    for r, l, d in ((1, 65536, 64), (8, 262144, 8)):
+        name = f"recurrence forward {(r, l, d)}"
+        make = lambda i, a=(r, l, d): lr_inputs(*a, gen, 1_000_003 + i)[:2]  # noqa: E731
+        call = lambda a, b, max_ctas=0: (linear_recurrence_fwd(a, b, max_ctas=max_ctas),)  # noqa: E731
+        rows.append(dict(call=name, replays=graph_replays(name, call, make)))
+        epoch_wrap(name, call, make(0))
+        epoch_wrap(f"{name} on {CAPPED_CTAS} CTAs",
+                   lambda a, b: call(a, b, max_ctas=CAPPED_CTAS), make(0))
+    for r, l, d in ((TRAIN_BATCH, 65536, 64), (TRAIN_BATCH, 262144, 8)):
+        name = f"recurrence reverse {(r, l, d)}"
+        make = lambda i, a=(r, l, d): tuple(  # noqa: E731
+            lr_inputs(*a, gen, 1_000_033 + i)[j] for j in (0, 2, 3))
+        call = lambda a, h, g, max_ctas=0: linear_recurrence_reverse(  # noqa: E731
+            a, h, g, max_ctas=max_ctas)
+        rows.append(dict(call=name, replays=graph_replays(name, call, make)))
+        epoch_wrap(name, call, make(0))
+        epoch_wrap(f"{name} on {CAPPED_CTAS} CTAs",
+                   lambda a, h, g: call(a, h, g, max_ctas=CAPPED_CTAS), make(0))
+    for row in rows:
+        print(f"{row['call']}: {row['replays']} graph replays with fresh inputs, each bitwise "
+              f"its eager call; bitwise across the epoch's wrap (also on {CAPPED_CTAS} CTAs), "
+              f"the workspace zeroed by the call at the last epoch")
+    return rows
 
 
 # ------------------------------------------------------------------ parallel
@@ -3216,6 +3440,11 @@ def main() -> int:
     report["lookback_contention"] = lookback_contention(gen)
     print(f"contention checked in {time.perf_counter() - t0:.1f} s  [{smi}]")
 
+    t0 = phase("look-back in CUDA graphs: the one-launch scans captured and replayed, and "
+               "across the epoch's wrap")
+    report["graph_checks"] = graph_checks(gen)
+    print(f"graphs checked in {time.perf_counter() - t0:.1f} s")
+
     t0 = phase("look-back window: device ms per train step (batch 4) and per batch-1 forward")
     sweep = window_sweep(gen)
     for key, ms in sweep.items():
@@ -3288,34 +3517,37 @@ def main() -> int:
         return out, time.perf_counter() - t
 
     cold = {name: serve(name)[1] for name in clips}  # first calls: set-up
-    zero_counts()
-    requests, forwards = [], 0
+    requests, forwards, serve_launches = [], 0, Counter()
     for name, sec in clips.items():
-        f0, l0 = selective_scan_fused.launches, linear_recurrence.launches
         out, wall = serve(name)
         n_in = int(round(sec * 48000))
         n_pad = seg if n_in <= seg else -(-n_in // seg) * seg
         n_seg = num_segments(n_pad, seg, cfg.INFERENCE.OVERLAP) if n_pad > seg else 1
         n_fwd = sum(segment_bucket_counts(n_seg).values())
-        d_fused = selective_scan_fused.launches - f0
-        d_lr = linear_recurrence.launches - l0
+        # The scans that ran on the card in a request: its forwards replay
+        # CUDA graphs, whose kernels the host does not launch one by one.
+        calls = device_scan_calls(lambda name=name: serve(name), forward_counts(n_fwd))
         ok = bool(torch.isfinite(out).all()) and out.shape == (1, 1, n_pad)
         r = dict(name=name, audio_s=sec, wall_s=wall, rtf=wall / sec, cold_wall_s=cold[name],
-                 forwards=n_fwd, fused_launches=d_fused, lr_launches=d_lr,
-                 out_samples=out.shape[-1], finite_and_length_ok=ok)
+                 forwards=n_fwd, fused_launches=calls["selective_scan_fused"],
+                 lr_launches=calls["linear_recurrence"], out_samples=out.shape[-1],
+                 finite_and_length_ok=ok)
         print(json.dumps(r))
-        if not ok or d_fused != 30 * n_fwd or d_lr != 4 * n_fwd:
-            raise AssertionError(f"serve {name}: {r}")
+        if not ok or calls != forward_counts(n_fwd):
+            raise AssertionError(f"serve {name}: {r}; scan calls on the device {calls}")
         requests.append(r)
+        serve_launches.update(calls)
         forwards += n_fwd
-    serve_launches = read_counts()
-    print(f"serve: {len(requests)} requests, {forwards} forwards, launches {serve_launches}")
-    if serve_launches["selective_scan_fused_bwd"] or serve_launches["linear_recurrence_reverse"]:
-        raise AssertionError("serving ran a backward kernel")
+    print(f"serve: {len(requests)} requests, {forwards} forwards, scan calls on the device "
+          f"(profiled requests) {dict(serve_launches)}")
     report["serve"] = requests
     print(f"served in {time.perf_counter() - t0:.1f} s")
 
-    t0 = phase("profile: one batch-1 forward, bf16")
+    t0 = phase("serve: the graphed forward at every bucket against the eager forward, bf16")
+    report["graphed_forward"] = graphed_forward_check(inferencer)
+    print(f"graphed forward checked in {time.perf_counter() - t0:.1f} s  [{smi}]")
+
+    t0 = phase("profile: one batch-1 forward (a graph's replay), bf16")
     x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=2)[None, None]).cuda()
     hf = torch.tensor([inferencer.load_input(paths["one_segment_2.555s"])[1].item()],
                       device="cuda")
@@ -3323,6 +3555,7 @@ def main() -> int:
     wall_ms = cuda_ms(fwd, reps=5, per=1)
     events = device_kernels(fwd)
     busy = busy_us(events) / 1e3
+    report["replay_vs_eager"] = replay_vs_eager(inferencer, x, hf)
     by_name = Counter()
     for name, s_, e_ in events:
         by_name[name] += (e_ - s_) / 1e3

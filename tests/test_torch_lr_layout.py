@@ -8,7 +8,10 @@ which checkpoint's state a tile starts from and which aggregates it
 composes onto it. The tests check that every tile's entry state covers exactly the tiles
 before it in its chain, each once, and that a walk of the rule in fp32 (the
 kernel's tiles, segments and order of composition) gives the recurrence of
-the JAX package, forward and in reverse."""
+the JAX package, forward and in reverse. ``_cta`` mirrors the look-back's
+epoch, which the kernels keep on the device (open_call, take_tile,
+close_call): replays of captured calls, their CTAs interleaved at random,
+read only their own words, across the epoch's wrap."""
 
 import numpy as np
 import pytest
@@ -29,7 +32,7 @@ from vm_asr_tpu_torch.ops.lookback import lookback_smem
 SM_SMEM_BYTES = 233_472
 CTA_RESERVED_BYTES = 1_024
 BLOCK_SMEM_MAX = 232_448
-STATIC_SMEM = 256 * 8 + 4  # the kernel's `part` (one affine step per thread) and its ticket
+STATIC_SMEM = 256 * 8 + 8  # the kernel's `part` (one affine step per thread), ticket and epoch
 INT32_MAX = 2**31 - 1
 STEPS = 16                 # the kernel's segment
 FP32_TOL = 1e-4            # the bar of tests/test_fused_scan.py:29-30
@@ -81,7 +84,7 @@ def _check_layout(r, l, d, reverse):
     n_tiles = -(-l // (tile.segments * STEPS))
     slots = r * (d // tile.channels) * n_tiles
     assert slots <= INT32_MAX
-    assert lr_workspace_bytes(r, l, d, tile) == 24 * slots * tile.channels + 8
+    assert lr_workspace_bytes(r, l, d, tile) == 24 * slots * tile.channels + 256
     return tile
 
 
@@ -213,3 +216,122 @@ def test_lookback_walk_matches_jax(shape, segments, window):
     h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
     torch.testing.assert_close(dh, dh_ref, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(dh * h_prev, da_ref, rtol=1e-3, atol=1e-3)
+
+
+# The device epoch (csrc/scan_common.cuh: open_call, take_tile, close_call).
+EPOCHS = 1 << 30  # epochs are 1 .. EPOCHS - 1
+
+
+class Workspace:
+    """The look-back's words: the epoch word (the last call's epoch), the
+    tile ticket (epoch, next id), the done count, and per slot its aggregate
+    and inclusive prefix, each (epoch, value, the call that wrote it)."""
+
+    def __init__(self):
+        self.zero()
+
+    def zero(self):
+        self.epoch, self.ticket, self.done = 0, (0, 0), 0
+        self.agg, self.inc = {}, {}
+
+    def is_zero(self):
+        return (self.epoch, self.ticket, self.done) == (0, (0, 0), 0) and \
+            not self.agg and not self.inc
+
+
+def _cta(ws, call, values, window, grid, epoch_from_host, out, reads):
+    """One CTA of a one-launch scan as a generator that yields at each memory
+    step: its epoch, then tile ids from the ticket, the next taken while it
+    walks the current one; tile id = j * chains + chain (the L-tile
+    slowest). A tile's value composes by addition."""
+    chains, n = len(values), len(values[0])
+    total = chains * n
+    epoch = ws.epoch + 1 if epoch_from_host is None else epoch_from_host
+
+    def take():
+        tag, nxt = ws.ticket
+        tid, ws.ticket = (nxt, (tag, nxt + 1)) if tag == epoch else (0, (epoch, 1))
+        if tid == total + grid - 1 and epoch_from_host is None:
+            ws.epoch = epoch
+        return tid
+
+    yield
+    tid = take()
+    while tid < total:
+        yield
+        nxt = take()
+        j, chain = divmod(tid, chains)
+        checkpoint, aggregates = lookback_plan(j, window)
+        if not is_checkpoint(j, window):
+            ws.agg[chain, j] = (epoch, values[chain][j], call)
+            yield
+        needed = [(ws.agg, (chain, m)) for m in aggregates]
+        if checkpoint is not None:
+            needed.append((ws.inc, (chain, checkpoint)))
+        while not all(d.get(k, (0,))[0] == epoch for d, k in needed):
+            yield
+        reads.update(d[k][2] for d, k in needed)
+        entry = sum(d[k][1] for d, k in needed)
+        if is_checkpoint(j, window):
+            ws.inc[chain, j] = (epoch, entry + values[chain][j], call)
+        out[chain][j] = entry
+        tid = nxt
+    yield
+    if epoch == EPOCHS - 1:  # the last CTA of a call at the last epoch zeroes the words
+        ws.done += 1
+        if ws.done == grid:
+            ws.zero()
+
+
+def _call(ws, call, values, window, grid, rng, epoch_from_host=None):
+    """One call on ``grid`` CTAs, their steps interleaved at random. Returns
+    the state entering each tile (None: never walked) and the calls whose
+    words the call read."""
+    out = [[None] * len(values[0]) for _ in values]
+    reads = set()
+    ctas = [_cta(ws, call, values, window, grid, epoch_from_host, out, reads)
+            for _ in range(grid)]
+    for _ in range(100_000):
+        if not ctas:
+            return out, reads
+        i = int(rng.integers(len(ctas)))
+        try:
+            next(ctas[i])
+        except StopIteration:
+            ctas.pop(i)
+    raise AssertionError("the call did not end")
+
+
+def _prefix_sums(values):
+    return [list(np.cumsum([0] + list(v))[:-1]) for v in values]
+
+
+@pytest.mark.parametrize("window,grid", [(4, 3), (8, 5), (1, 2)])
+def test_device_epoch_replays_read_only_their_own_words(window, grid):
+    """Two captured calls of other shapes on one workspace (their slots
+    overlap), replayed in turns with fresh inputs copied in before each
+    replay, across the wrap of the epoch: every replay reads only words its
+    own replay wrote and gives the exact entry states; the call at the last
+    epoch leaves the workspace zeroed. Baking the epoch into the graph, as a
+    host-chosen epoch would be, fails on the second replay."""
+    rng = np.random.default_rng(window * 10 + grid)
+    shapes = [(2, 13), (3, 7)]  # (chains, tiles a chain) of the two captured calls
+    ws = Workspace()
+    ws.epoch = EPOCHS - 4  # the replays cross the last epoch
+    for call in range(8):
+        chains, n = shapes[call % 2]
+        values = rng.integers(1, 1000, (chains, n)).tolist()
+        out, reads = _call(ws, call, values, window, grid, rng)
+        assert out == _prefix_sums(values)
+        assert reads <= {call}
+        if call == 2:  # the call at epoch EPOCHS - 1
+            assert ws.is_zero()
+        else:
+            assert ws.epoch == (call + EPOCHS - 3 if call < 2 else call - 2)
+
+    baked = Workspace()
+    chains, n = shapes[0]
+    results = [_call(baked, call, rng.integers(1, 1000, (chains, n)).tolist(), window, grid,
+                     rng, epoch_from_host=1) for call in range(2)]
+    assert results[0][1] <= {0}
+    assert any(None in row for row in results[1][0])

@@ -84,7 +84,7 @@ def _check_layout(bsz, l, kd, chunk, itemsize):
     n_tiles = -(-(-(-l // chunk)) // tile.chunks)
     slots = bsz * (kd // tile.channels) * n_tiles
     assert slots <= INT32_MAX
-    assert fwd_workspace_bytes(bsz, l, kd, chunk, tile) == 24 * slots * tile.channels + 8
+    assert fwd_workspace_bytes(bsz, l, kd, chunk, tile) == 24 * slots * tile.channels + 256
     return tile
 
 

@@ -15,8 +15,9 @@ calls' ramp). On the card each window is timed by CUDA events and ends in
 Spans: ``span(name, **counts)`` marks a phase of a request or a step (the
 Inferencer's and the train step's phases, the Trainer's loop). It records
 only while a ``torch.profiler`` is collecting; otherwise it is one check
-and a shared no-op object. A recorded span is a ``Span`` on
-``time.time_ns()``, the clock of the profiler's events, and a
+and a shared no-op object. ``add_counts(**counts)`` adds to the counts of
+the innermost span open (a bucket forward's graph replay). A recorded span
+is a ``Span`` on ``time.time_ns()``, the clock of the profiler's events, and a
 ``record_function`` range named ``vmasr/<name>`` in the profiler's trace.
 ``recorded_spans()`` reads them, ``clear_spans()`` drops them;
 ``device_intervals`` reads a finished profiler's kernels and copies, and
@@ -326,6 +327,18 @@ def span(name: str, **counts):
     if not _profiler_enabled():
         return _OFF
     return _On(name, counts)
+
+
+def add_counts(**counts: int) -> None:
+    """Add ``counts`` to those of the innermost span the calling thread has
+    open, while a profiler collects; nothing otherwise."""
+    if not _profiler_enabled():
+        return
+    stack = getattr(_OPEN, "stack", None)
+    if stack:
+        into = stack[-1].counts
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
 
 
 def recorded_spans() -> List[Span]:

@@ -54,8 +54,9 @@
 // this side checks it.
 //
 // The look-back's note (scan_common.cuh) says why it cannot deadlock and
-// why no kernel clears its words (they carry a per-call epoch, so a CUDA
-// graph cannot capture the kernel as it stands).
+// why no kernel clears its words (they carry a per-call epoch, which the
+// kernel reads from the workspace and advances itself, so that a CUDA graph
+// can capture the call and every replay gets a fresh epoch).
 //
 // Bitwise repeatable: each state is one fixed expression of the tiles'
 // aggregates, so H0 and y are the same bits on every call and on any grid
@@ -92,9 +93,8 @@
 // Being repeatable costs about 5 % per train step against the decoupled
 // look-back that stopped at the first inclusive prefix it found (0.544 ms):
 // a tile now reads up to W - 1 aggregates rather than mostly one prefix.
-// Left for later: TMA loads from a producer warp, a look-back that overlaps
-// the next tile's walk, and a device-side epoch that would let a CUDA graph
-// capture the kernel.
+// Left for later: TMA loads from a producer warp, and a look-back that
+// overlaps the next tile's walk.
 //
 // Numerics: dt and a as the backward computes them (scan_common.cuh: exp on
 // the SFU, log1p_unit), so that H0 and the backward's walk agree to the bit.
@@ -340,9 +340,15 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
   const int seg = live ? tid / G : 0;
   const int g = live ? tid - seg * G : 0;
 
-  __shared__ int ticket;  // the tile id thread 0 took for the CTA
-  if (tid == 0) ticket = take_tile(lb);
+  __shared__ int ticket;        // the tile id thread 0 took for the CTA
+  __shared__ uint32_t epoch;    // this call's (scan_common.cuh: open_call)
+  if (tid == 0) {
+    lb.epoch = open_call(lb);  // used before it is stored: the two loads overlap
+    ticket = take_tile(lb, total);
+    epoch = lb.epoch;
+  }
   __syncthreads();
+  lb.epoch = epoch;
   int id = ticket;
   if (id < total) {
     const TileAt at = tile_at(args, tile, id);
@@ -353,7 +359,7 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
     const Buf<T> buf = buffer(n & 1);
     const TileAt at = tile_at(args, tile, id);
     __syncthreads();  // every thread has read the ticket
-    if (tid == 0) ticket = take_tile(lb);
+    if (tid == 0) ticket = take_tile(lb, total);
     __syncthreads();
     const int next_id = ticket;
     if (next_id < total) {
@@ -434,6 +440,7 @@ fused_fwd_kernel(FwdArgs args, FwdTile tile, LookBack lb) {
     __syncthreads();  // before the buffer takes the tile after next, and part the next
     id = next_id;
   }
+  close_call(lb, ticket);
 }
 
 template <typename T, int kG>
@@ -454,10 +461,13 @@ int launch(const FwdArgs& args, const FwdTile& tile, LookBack lb, int threads, i
 // bf16, else fp32). A, bias, dskip: (B / group_rows, KD) fp32, row b reading
 // set b / group_rows (group_rows = B: one set, (KD,)). H0: (B, n_chunks, KD) fp32,
 // n_chunks = ceil(L / chunk), receives the state entering each chunk. work:
-// work_bytes of device memory that the caller keeps across calls, at least
-// 24 * slots * tile_channels bytes for slots = B * (KD / tile_channels) *
-// ceil(n_chunks / tile_chunks), and zeroed before its first use; epoch in
-// [1, 2^30), a new one for each call that uses it (calls on one stream).
+// work_bytes of device memory that the caller keeps across calls, 8-byte
+// aligned, at least 24 * slots * tile_channels + 256 bytes for slots = B *
+// (KD / tile_channels) * ceil(n_chunks / tile_chunks), and zeroed before its
+// first use; calls that use it run one after another (on one stream, or
+// replays of CUDA graphs that captured them, in order). The kernel keeps its
+// look-back's epoch there (scan_common.cuh), so a CUDA graph may capture the
+// call.
 // The tile: tile_channels dividing KD; tile_chunks >= 1; tile_splits
 // segments per chunk, each a whole number of 16-step sub-tiles;
 // tile_threads a multiple of 32 in [channels * chunks * splits, 256];
@@ -468,7 +478,7 @@ int launch(const FwdArgs& args, const FwdTile& tile, LookBack lb, int threads, i
 extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* bs,
                                     const void* cs, const float* A, const float* bias,
                                     const float* dskip, void* y, float* H0, void* work,
-                                    long long work_bytes, unsigned epoch, int B, int L, int KD,
+                                    long long work_bytes, int B, int L, int KD,
                                     int K, int chunk, int group_rows, int bf16,
                                     int tile_channels,
                                     int tile_chunks, int tile_splits, int tile_threads,
@@ -489,15 +499,14 @@ extern "C" int vmasr_fused_scan_fwd(const void* u, const void* dts, const void* 
   const int n_chunks = (L + chunk - 1) / chunk;
   const int n_tiles = (n_chunks + C - 1) / C;
   const size_t slots = (size_t)B * (KD / G) * n_tiles;
-  if (!lookback_ok(work, work_bytes, epoch, slots, G, tile_window))
-    return (int)cudaErrorInvalidValue;
+  if (!lookback_ok(work, work_bytes, slots, G, tile_window)) return (int)cudaErrorInvalidValue;
   const bool vec = K == 4 && (G * item) % 16 == 0 && tile_threads % (G * item / 16) == 0 &&
                    (KD * item) % 16 == 0 && aligned(u, 16) && aligned(dts, 16) &&
                    aligned(y, 16) && aligned(bs, 4 * item) && aligned(cs, 4 * item);
   FwdTile tile{G, C, sp, chunk / (sp * kSteps), KD / G, n_tiles, vec};
   FwdArgs args{u, dts, bs, cs, A, bias, dskip, y, H0, B, L, KD, K, chunk, n_chunks,
                group_rows};
-  const LookBack lb = make_lookback(work, slots, G, epoch, tile_window);
+  const LookBack lb = make_lookback(work, work_bytes, slots, G, tile_window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 32 && K == 4) {
     return bf16 ? launch<__nv_bfloat16, 32>(args, tile, lb, tile_threads, tile_smem, max_ctas, s)

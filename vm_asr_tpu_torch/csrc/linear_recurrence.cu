@@ -239,9 +239,15 @@ lr_scan_kernel(LrArgs args, LrTile tile, LookBack lb) {
   const int seg = live ? tid / G : 0;
   const int g = live ? tid - seg * G : 0;
 
-  __shared__ int ticket;  // the tile id thread 0 took for the CTA
-  if (tid == 0) ticket = take_tile(lb);
+  __shared__ int ticket;        // the tile id thread 0 took for the CTA
+  __shared__ uint32_t epoch;    // this call's (scan_common.cuh: open_call)
+  if (tid == 0) {
+    lb.epoch = open_call(lb);  // used before it is stored: the two loads overlap
+    ticket = take_tile(lb, total);
+    epoch = lb.epoch;
+  }
   __syncthreads();
+  lb.epoch = epoch;
   int id = ticket;
   if (id < total) {
     float* x[kArrays];
@@ -254,7 +260,7 @@ lr_scan_kernel(LrArgs args, LrTile tile, LookBack lb) {
     buffer(n & 1, x);
     const TileAt at = tile_at<kReverse>(args, tile, id);
     __syncthreads();  // every thread has read the ticket
-    if (tid == 0) ticket = take_tile(lb);
+    if (tid == 0) ticket = take_tile(lb, total);
     __syncthreads();
     const int next_id = ticket;
     if (next_id < total) {
@@ -348,6 +354,7 @@ lr_scan_kernel(LrArgs args, LrTile tile, LookBack lb) {
     __syncthreads();  // before the buffer takes the tile after next, and part the next
     id = next_id;
   }
+  close_call(lb, ticket);
 }
 
 template <bool kReverse, int kG>
@@ -363,7 +370,7 @@ int launch(const LrArgs& args, const LrTile& tile, const LookBack& lb, int threa
 }
 
 template <bool kReverse>
-int run(const LrArgs& args, void* work, long long work_bytes, unsigned epoch, int G, int segs,
+int run(const LrArgs& args, void* work, long long work_bytes, int G, int segs,
         int threads, int window, int smem, int max_ctas, void* stream) {
   const int R = args.R, L = args.L, D = args.D;
   if (R <= 0 || L <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
@@ -374,12 +381,12 @@ int run(const LrArgs& args, void* work, long long work_bytes, unsigned epoch, in
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (L + segs * kSeg - 1) / (segs * kSeg);
   const size_t slots = (size_t)R * (D / G) * n_tiles;
-  if (!lookback_ok(work, work_bytes, epoch, slots, G, window)) return (int)cudaErrorInvalidValue;
+  if (!lookback_ok(work, work_bytes, slots, G, window)) return (int)cudaErrorInvalidValue;
   bool vec = G % 4 == 0 && D % 4 == 0 && aligned(args.a, 16) && aligned(args.b, 16) &&
              aligned(args.out, 16);
   if (kReverse) vec = vec && aligned(args.h, 16) && aligned(args.da, 16);
   const LrTile tile{G, segs, seg_stride(G), D / G, n_tiles, vec};
-  const LookBack lb = make_lookback(work, slots, G, epoch, window);
+  const LookBack lb = make_lookback(work, work_bytes, slots, G, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 8 && vec) return launch<kReverse, 8>(args, tile, lb, threads, smem, max_ctas, s);
   if (G == 32 && vec) return launch<kReverse, 32>(args, tile, lb, threads, smem, max_ctas, s);
@@ -390,22 +397,23 @@ int run(const LrArgs& args, void* work, long long work_bytes, unsigned epoch, in
 }  // namespace vmasr
 
 // a, b, h: (R, L, D) fp32, contiguous. work: work_bytes of device memory
-// that the caller keeps across calls, at least 24 * slots * tile_channels
-// bytes for slots = R * (D / tile_channels) * ceil(L / (16 * tile_segments)),
-// zeroed before its first use; epoch in [1, 2^30), a new one for each call
-// that uses it (calls on one stream). The tile: tile_channels dividing D, at
+// that the caller keeps across calls, 8-byte aligned, at least 24 * slots *
+// tile_channels + 256 bytes for slots = R * (D / tile_channels) * ceil(L / (16
+// * tile_segments)), zeroed before its first use; calls that use it run one
+// after another (as the fused forward's, fused_scan.cu, and a CUDA graph may
+// capture the call). The tile: tile_channels dividing D, at
 // most 64; tile_threads a multiple of 32 in [channels * segments, 256];
 // tile_window >= 1, the look-back's checkpoint spacing; tile_smem at least
 // what they need and at most 232 448 bytes. max_ctas > 0 caps the grid (the
 // result is the same on any grid). Returns a cudaError_t;
 // cudaErrorInvalidValue for a shape, tile or workspace it does not take.
 extern "C" int vmasr_linear_recurrence(const float* a, const float* b, float* h, void* work,
-                                       long long work_bytes, unsigned epoch, int R, int L, int D,
+                                       long long work_bytes, int R, int L, int D,
                                        int tile_channels, int tile_segments, int tile_threads,
                                        int tile_window, int tile_smem, int max_ctas,
                                        void* stream) {
   const vmasr::LrArgs args{a, b, nullptr, h, nullptr, R, L, D};
-  return vmasr::run<false>(args, work, work_bytes, epoch, tile_channels, tile_segments,
+  return vmasr::run<false>(args, work, work_bytes, tile_channels, tile_segments,
                            tile_threads, tile_window, tile_smem, max_ctas, stream);
 }
 
@@ -414,12 +422,12 @@ extern "C" int vmasr_linear_recurrence(const float* a, const float* b, float* h,
 // and da. Returns a cudaError_t.
 extern "C" int vmasr_linear_recurrence_reverse(const float* a, const float* g, const float* h,
                                                float* dh, float* da, void* work,
-                                               long long work_bytes, unsigned epoch, int R,
+                                               long long work_bytes, int R,
                                                int L, int D, int tile_channels,
                                                int tile_segments, int tile_threads,
                                                int tile_window, int tile_smem, int max_ctas,
                                                void* stream) {
   const vmasr::LrArgs args{a, g, h, dh, da, R, L, D};
-  return vmasr::run<true>(args, work, work_bytes, epoch, tile_channels, tile_segments,
+  return vmasr::run<true>(args, work, work_bytes, tile_channels, tile_segments,
                           tile_threads, tile_window, tile_smem, max_ctas, stream);
 }

@@ -9,6 +9,7 @@ shorter), ``center=True`` reflect padding, one-sided spectra laid out
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -104,14 +105,46 @@ def spectro2wav(
         amp = torch.exp2(mag)
     spec = torch.polar(amp.float(), phase.float())
     lead = spec.shape[:-2]
-    wav = torch.istft(
-        spec.reshape((-1,) + spec.shape[-2:]),
-        n_fft=n_fft,
-        hop_length=hop_length,
-        win_length=win_length,
-        window=hann_window(win_length, mag.device),
-        center=True,
-        normalized=True,
-        onesided=True,
-    )
+    wav = istft(spec.reshape((-1,) + spec.shape[-2:]), n_fft, hop_length, win_length)
     return wav.reshape(lead + wav.shape[-1:])
+
+
+@functools.lru_cache(maxsize=None)
+def _check_envelope(n_fft: int, hop_length: int, win_length: int, frames: int) -> None:
+    """torch.istft's check that the window's overlap-add envelope has no
+    zero where the signal is kept, made on the host (the envelope depends
+    on the sizes alone)."""
+    window = torch.nn.functional.pad(hann_window(win_length).double() ** 2,
+                                     _window_pad(n_fft, win_length))
+    length = n_fft + hop_length * (frames - 1)
+    env = torch.ops.aten.unfold_backward(window.expand(1, frames, n_fft), [1, length], 1,
+                                         n_fft, hop_length)[0, n_fft // 2:length - n_fft // 2]
+    if env.numel() and env.abs().min() < 1e-11:
+        raise ValueError(f"istft: the window's overlap-add envelope is zero somewhere (n_fft "
+                         f"{n_fft}, hop {hop_length}, win_length {win_length}, {frames} frames)")
+
+
+def _window_pad(n_fft: int, win_length: int) -> Tuple[int, int]:
+    left = (n_fft - win_length) // 2
+    return left, n_fft - win_length - left
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """torch.istft of one-sided spectra ``(B, n_fft // 2 + 1, frames)`` with
+    the periodic Hann window, ``center=True`` and ``normalized=True``: the
+    same ops in the same order, so the same bits
+    (tests/test_torch_graphed_forward.py), with the envelope's check on the
+    host (``_check_envelope``) where torch.istft reads it back from the
+    device, which a CUDA graph's capture refuses."""
+    frames = spec.shape[-1]
+    _check_envelope(n_fft, hop_length, win_length, frames)
+    window = hann_window(win_length, spec.device)
+    if win_length != n_fft:
+        window = torch.nn.functional.pad(window, _window_pad(n_fft, win_length))
+    frames_t = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, norm="ortho")
+    length = n_fft + hop_length * (frames - 1)
+    y = torch.ops.aten.unfold_backward(frames_t * window.view(1, 1, n_fft),
+                                       [spec.shape[0], length], 1, n_fft, hop_length)
+    env = torch.ops.aten.unfold_backward(window.pow(2).expand(1, frames, n_fft), [1, length], 1,
+                                         n_fft, hop_length)
+    return y[:, n_fft // 2:-(n_fft // 2)] / env[:, n_fft // 2:-(n_fft // 2)]

@@ -31,7 +31,8 @@ from .selective_scan_ref import linear_recurrence_ref
 # The device kernel one launch of each wrapper runs, under the names
 # torch.profiler gives it (demangled): one pass, compiled for groups of 8
 # and 32 channels and for any group, and nothing to initialise it (its
-# look-back words carry a per-call epoch).
+# look-back words carry a per-call epoch, which the kernel keeps in the
+# workspace).
 _NS = "vmasr::(anonymous namespace)::"
 
 
@@ -129,7 +130,7 @@ def linear_recurrence_reverse_plain(a: torch.Tensor, h: torch.Tensor, g: torch.T
 def _kernel(reverse: bool):
     lib = load("linear_recurrence.cu")
     fn = lib.vmasr_linear_recurrence_reverse if reverse else lib.vmasr_linear_recurrence
-    fn.argtypes = ([ctypes.c_void_p] * (6 if reverse else 4) + [ctypes.c_int64, ctypes.c_uint32]
+    fn.argtypes = ([ctypes.c_void_p] * (6 if reverse else 4) + [ctypes.c_int64]
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -151,9 +152,9 @@ def _launch(reverse: bool, ptrs, shape, device, max_ctas: int, window: int | Non
     r, l, d = shape
     tile = lr_tile_layout(r, l, d, reverse, window)
     stream = current_stream(device)
-    work, epoch = lookback_workspace(device, stream, lr_workspace_bytes(r, l, d, tile))
-    err = _kernel(reverse)(*ptrs, work.data_ptr(), work.numel(), epoch, r, l, d, *tile,
-                           max_ctas, stream)
+    work = lookback_workspace(device, stream, lr_workspace_bytes(r, l, d, tile))
+    err = _kernel(reverse)(*ptrs, work.data_ptr(), work.numel(), r, l, d, *tile, max_ctas,
+                           stream)
     if err:
         name = "linear_recurrence_reverse" if reverse else "linear_recurrence"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

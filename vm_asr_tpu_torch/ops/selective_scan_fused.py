@@ -61,8 +61,9 @@ def chunk_length(rows: int, length: int, channels: int) -> int:
 # names torch.profiler gives them (demangled), for bf16 and fp32 IO. The
 # forward is one kernel, compiled for 32-channel groups and for any group,
 # and needs nothing to initialise it (its look-back words carry a per-call
-# epoch). The backward's fold takes two bf16 channels per 4-byte load where
-# the rows allow, else one channel per thread; its carry pass
+# epoch, which the kernel keeps in the workspace). The backward's fold takes
+# two bf16 channels per 4-byte load where the rows allow, else one channel
+# per thread; its carry pass
 # (csrc/fused_scan_bwd.cu:chunk_carry_kernel) is the only chunk-carry kernel
 # left in the port.
 _NS = "vmasr::(anonymous namespace)::"
@@ -171,8 +172,8 @@ def selective_scan_fused_bwd_plain(u, dts, bs, cs, dy, a_neg, dt_bias, d_skip,
 @functools.cache
 def _fwd_kernel():
     fn = load("fused_scan.cu").vmasr_fused_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_uint32]
-                   + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 14
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -366,11 +367,10 @@ def selective_scan_fused_fwd(u, dts, bs, cs, a_neg, dt_bias, d_skip, k_group: in
     y = torch.empty_like(u)
     h0 = torch.empty((bsz, -(-l // chunk), kd), dtype=torch.float32, device=u.device)
     stream = current_stream(u.device)
-    work, epoch = lookback_workspace(u.device, stream,
-                                     fwd_workspace_bytes(bsz, l, kd, chunk, tile))
+    work = lookback_workspace(u.device, stream, fwd_workspace_bytes(bsz, l, kd, chunk, tile))
     err = _fwd_kernel()(u.data_ptr(), dts.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                         a_neg.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(),
-                        y.data_ptr(), h0.data_ptr(), work.data_ptr(), work.numel(), epoch,
+                        y.data_ptr(), h0.data_ptr(), work.data_ptr(), work.numel(),
                         bsz, l, kd, k_group, chunk, bsz // (a_neg.numel() // kd),
                         int(u.dtype == torch.bfloat16), *tile, max_ctas, stream)
     if err:

@@ -14,7 +14,8 @@ the step records its phases as spans (``core.profiling.span``): step >
 generator, gen_loss, gen_backward, gen_update, then disc_loss,
 disc_backward, disc_update for each discriminator, then metrics; and each
 bucket forward of ``bucketed_forward`` a ``generator`` span with its bucket
-size and real segments.
+size and real segments, and on the card whether its forward was a CUDA
+graph's replay (``graph_replays``, ``make_forward_fn``).
 
 Under data parallelism (``mesh`` with dp > 1) each rank runs the step on its
 rows of the global batch (``batch["rows"]``, from ``parallel.shard_batch``):
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import losses as L
-from ..core.profiling import span
+from ..core.profiling import add_counts, span
 from ..metrics import get_metrics
 from ..parallel import global_rows, mean_, rand_rows
 
@@ -274,15 +275,96 @@ def make_eval_step(config, generator: torch.nn.Module, mesh=None) -> Callable:
     return eval_step
 
 
-def make_forward_fn(generator: torch.nn.Module) -> Callable:
-    """forward(x, hf) → the generator's output, in eval and inference mode."""
-    generator.eval()
+class _Replay:
+    """One captured forward: its graph, and its static inputs and output."""
 
-    def forward(x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+    def __init__(self, graph, x, hf, out):
+        self.graph, self.x, self.hf, self.out = graph, x, hf, out
+
+    def __call__(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        self.hf.copy_(hf)
+        self.graph.replay()
+        return self.out.clone()
+
+
+class GraphedForward:
+    """forward(x, hf) → the generator's output in eval and inference mode,
+    replayed from one CUDA graph per signature of its inputs (the shapes,
+    dtypes and devices of x and hf), which takes the forward's kernel
+    launches off the host.
+
+    A signature's first call runs eagerly on the capture stream, which warms
+    what a capture needs there (cuFFT plans, cuBLAS workspaces, the scans'
+    look-back workspaces, ops/lookback.py); its second call captures the
+    forward and replays it; later calls replay. A replay copies x and hf
+    into the graph's inputs and returns a copy of its output, which the
+    caller owns: the next replay overwrites the graph's. All graphs share
+    one memory pool, so that memory stays near the largest forward's: each
+    keeps its output, replays run one after another on the caller's stream,
+    and each output is copied before any other replay can write where it
+    lies. CPU inputs, and calls while a capture is under way on the current
+    stream, take the eager forward. Under a profiler a call on the card adds
+    ``graph_replays`` (1 for a replay, else 0) to the innermost span open.
+    """
+
+    def __init__(self, generator: torch.nn.Module):
+        self.generator = generator
+        self.seen = set()
+        self.graphs: Dict[tuple, Callable] = {}
+        self.streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self.pool = None
+
+    def __call__(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return generator(x, hf)
+            if not self.graphable(x):
+                return self.generator(x, hf)
+            key = (x.shape, x.dtype, x.device, hf.shape, hf.dtype, hf.device)
+            graph = self.graphs.get(key)
+            if graph is None:
+                if key not in self.seen:
+                    self.seen.add(key)
+                    add_counts(graph_replays=0)
+                    return self.warm(x, hf)
+                graph = self.graphs[key] = self.capture(x, hf)
+            add_counts(graph_replays=1)
+            return graph(x, hf)
 
-    return forward
+    def graphable(self, x: torch.Tensor) -> bool:
+        return x.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    def warm(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+        """The eager forward on the capture stream."""
+        if x.device not in self.streams:
+            self.streams[x.device] = torch.cuda.Stream(x.device)
+        stream = self.streams[x.device]
+        caller = torch.cuda.current_stream(x.device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            out = self.generator(x, hf)
+        caller.wait_stream(stream)
+        out.record_stream(caller)
+        return out
+
+    def capture(self, x: torch.Tensor, hf: torch.Tensor) -> _Replay:
+        """The forward captured on the capture stream, with static copies of
+        x and hf as its inputs."""
+        static_x, static_hf = x.clone(), hf.clone()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.streams[x.device],
+                              capture_error_mode="thread_local"):
+            out = self.generator(static_x, static_hf)
+        return _Replay(graph, static_x, static_hf, out)
+
+
+def make_forward_fn(generator: torch.nn.Module) -> Callable:
+    """forward(x, hf) → the generator's output, in eval and inference mode;
+    on the card replayed from a CUDA graph per input shape
+    (``GraphedForward``)."""
+    generator.eval()
+    return GraphedForward(generator)
 
 
 # Segment-batch sizes for long clips: at most 8 segments per forward, and
