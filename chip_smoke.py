@@ -139,7 +139,11 @@ raising on failure:
    bound); the fp32 gradient of the logits against a seeded cotangent at
    batch 2, kernels against plain, with 240 reverse launches and the peak
    memory; BackboneVSSM's feature shapes; and matmul_flops of the batch-1
-   forward equal to the JAX package's count.
+   forward equal to the JAX package's count. A side check of the modules at
+   the class defaults (MLP ratio 4, patch embed v2: 43.76 M parameters),
+   not a published configuration: the published VMamba-T v0 runs through
+   the configuration and ``train/classifier.py`` in the benchmark's
+   ``vssm_tiny.classify`` cell.
 15. checks: vm_asr_tpu_torch.checks with --grid (every kernel against its
    plain version at the JAX package's grid, and the micro-benchmarks).
 16. bench: the stages of python -m vm_asr_tpu_torch.bench at the flagship's

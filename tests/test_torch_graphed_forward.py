@@ -3,8 +3,9 @@
 (ops/lookback.py), on the CPU: on CPU tensors the forward is the eager one,
 bit for bit; dsp.istft is torch.istft, bit for bit; the graph cache's
 policy with its capture stubbed (eager on a signature's first sight,
-capture on its second, replay after; a key per signature; eager while a
-capture runs); a replay's copies, and no launch counted for it; the
+capture on its second, replay after; a key per signature of every
+positional input, of a one- and a two-input module; eager while a capture
+runs); a replay's copies, and no launch counted for it; the
 ``graph_replays`` count on the ``generator`` span and the benchmark's
 reader of it; a workspace that a capture could have baked in is never freed, and none is
 made inside a capture."""
@@ -28,7 +29,7 @@ from vm_asr_tpu_torch.ops import (
     selective_scan_fused_bwd,
 )
 from vm_asr_tpu_torch.train import make_forward_fn
-from vm_asr_tpu_torch.train.steps import GraphedForward, _Replay
+from vm_asr_tpu_torch.train.steps import GraphedForward, _Replay, signature
 
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -96,23 +97,23 @@ class Stubbed(GraphedForward):
     unless ``capturing``; warm-up and capture are logged, and a "graph"
     replays the eager forward."""
 
-    def __init__(self, generator):
-        super().__init__(generator)
+    def __init__(self, module):
+        super().__init__(module)
         self.log, self.capturing = [], False
 
     def graphable(self, x):
         return not self.capturing
 
-    def warm(self, x, hf):
-        self.log.append(("warm", tuple(x.shape), x.dtype))
-        return self.generator(x, hf)
+    def warm(self, inputs):
+        self.log.append(("warm", tuple(inputs[0].shape), inputs[0].dtype))
+        return self.module(*inputs)
 
-    def capture(self, x, hf):
-        self.log.append(("capture", tuple(x.shape), x.dtype))
+    def capture(self, inputs):
+        self.log.append(("capture", tuple(inputs[0].shape), inputs[0].dtype))
 
-        def replay(x, hf):
-            self.log.append(("replay", tuple(x.shape), x.dtype))
-            return self.generator(x, hf)
+        def replay(*inputs):
+            self.log.append(("replay", tuple(inputs[0].shape), inputs[0].dtype))
+            return self.module(*inputs)
 
         return replay
 
@@ -145,6 +146,29 @@ def test_graph_policy():
     assert fwd.log == [] and len(fwd.graphs) == 3 and len(fwd.seen) == 3
 
 
+@pytest.mark.parametrize("arity", [1, 2])
+def test_graph_key_is_every_input(arity):
+    """The key is each positional input's shape, dtype and device: a
+    one-input module (the classifier's images) gets a graph per image
+    shape and dtype; a two-input one (the generator's x and hf) a new one
+    when only its second input changes."""
+    def fn(*inputs):
+        return sum(t.double().sum() for t in inputs)
+
+    fwd = Stubbed(fn)
+    x = torch.ones(2, 4, 4, 3, dtype=torch.uint8)
+    calls = [(x,), (x,), (x.float(),), (x[:1],), (x.float(),)] if arity == 1 else \
+        [(x, torch.zeros(2)), (x, torch.zeros(2)), (x, torch.zeros(3)),
+         (x, torch.zeros(2, dtype=torch.int64)), (x, torch.zeros(3))]
+    for inputs in calls:
+        assert fwd(*inputs) == fn(*inputs)
+    assert signature(calls[0]) == tuple((t.shape, t.dtype, t.device) for t in calls[0])
+    assert len(fwd.seen) == len({signature(c) for c in calls}) == 3
+    assert [e[0] for e in fwd.log] == ["warm", "capture", "replay", "warm", "warm", "capture",
+                                       "replay"]
+    assert len(fwd.graphs) == 2
+
+
 class FakeGraph:
     """A graph whose replay runs its forward on the static tensors."""
 
@@ -162,7 +186,7 @@ def test_replay_copies_in_and_out_and_counts_launches():
     host issues, and a replay issues none of its kernels one by one."""
     x, hf = torch.zeros(2, 1, 4), torch.zeros(2)
     out = torch.empty(2, 1, 4)
-    replay = _Replay(FakeGraph(x, hf, out), x, hf, out)
+    replay = _Replay(FakeGraph(x, hf, out), [x, hf], out)
     before = [fn.launches for fn in COUNTED]
     first = replay(torch.ones(2, 1, 4), torch.ones(2))
     second = replay(torch.full((2, 1, 4), 3.0), torch.zeros(2))
@@ -188,7 +212,7 @@ def test_generator_span_counts_replays():
     read = _reader("graph_replay_share.serve")
     x, hf = torch.ones(1, 1, 4), torch.zeros(1)
     cpu = make_forward_fn(torch.nn.Identity())
-    cpu.generator = _double
+    cpu.module = _double
     for fwd, want, share in ((Stubbed(_double), [0, 1, 1], 2 / 3), (cpu, [None] * 3, None)):
         clear_spans()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):

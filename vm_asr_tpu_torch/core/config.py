@@ -204,6 +204,9 @@ def default_config() -> CfgNode:
     c.DATA.FLAC2WAV.SRC_PATH = "data/"
     c.DATA.FLAC2WAV.DST_PATH = "VCTK-Corpus-0.92/wav48_silence_trimmed_wav"
     c.DATA.FLAC2WAV.TIMESTAMPS = "./vctk-silence-labels/vctk-silences.0.92.txt"
+    # The VMamba classifier's image side (MODEL.TYPE "vssm",
+    # models/factory.py:build_classifier); no VM-ASR path reads it.
+    c.DATA.IMG_SIZE = 224
 
     # -- model (reference config.py:84-121) ----------------------------------
     c.MODEL = CfgNode()
@@ -211,6 +214,9 @@ def default_config() -> CfgNode:
     c.MODEL.NAME = "VM_ASR_BASIC"
     c.MODEL.RESUME_PATH = None
     c.MODEL.DROP_RATE = 0.0
+    # The VMamba classifier's classes (MODEL.TYPE "vssm"); no VM-ASR path
+    # reads it.
+    c.MODEL.NUM_CLASSES = 1000
     c.MODEL.VSSM = CfgNode()
     c.MODEL.VSSM.IN_CHANS = 1
     c.MODEL.VSSM.PATCH_SIZE = 4

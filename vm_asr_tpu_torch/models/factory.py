@@ -1,5 +1,6 @@
 """Model factory: config → generator and discriminators (port of
-vm_asr_tpu/models/factory.py)."""
+vm_asr_tpu/models/factory.py), and config → the VMamba classifier
+(MODEL.TYPE "vssm")."""
 
 from __future__ import annotations
 
@@ -29,17 +30,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 _MAMBA_UNET_NAMES = ("MambaUNet", "VM_ASR_BASIC")
 
 
-def generator_kwargs(config) -> Dict[str, Any]:
-    """Constructor arguments of the generator named by ``config``: every
-    MODEL.VSSM option the JAX factory passes (vm_asr_tpu/models/factory.py:
-    25-58, 79-88). STACKED_EXECUTION is not one: it swaps the trained model
-    for its stacked twin at serving time (``to_stacked``)."""
+def _backbone_kwargs(config) -> Dict[str, Any]:
+    """The arguments the generator and the classifier share: the patch
+    embedding, the stages' widths and depths, every SS2D and block option,
+    and the compute dtype."""
     v = config.MODEL.VSSM
-    name = config.MODEL.NAME
-    if name not in ("DualStreamInteractiveMambaUNet",) + _MAMBA_UNET_NAMES:
-        raise ValueError(f"Unknown model name: {name}")
-    compute = _DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32
-    kwargs = dict(
+    return dict(
         in_chans=v.IN_CHANS,
         patch_size=v.PATCH_SIZE,
         depths=tuple(v.DEPTHS),
@@ -58,17 +54,31 @@ def generator_kwargs(config) -> Dict[str, Any]:
         drop_path_rate=v.DROP_PATH_RATE,
         patch_norm=v.PATCH_NORM,
         patchembed_version=v.PATCHEMBED,
+        use_checkpoint=bool(v.get("USE_CHECKPOINT", False)),
+        compute_dtype=_DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32,
+        scan_fp32_io=bool(v.get("SCAN_FP32_IO", False)),
+    )
+
+
+def generator_kwargs(config) -> Dict[str, Any]:
+    """Constructor arguments of the generator named by ``config``: every
+    MODEL.VSSM option the JAX factory passes (vm_asr_tpu/models/factory.py:
+    25-58, 79-88). STACKED_EXECUTION is not one: it swaps the trained model
+    for its stacked twin at serving time (``to_stacked``)."""
+    v = config.MODEL.VSSM
+    name = config.MODEL.NAME
+    if name not in ("DualStreamInteractiveMambaUNet",) + _MAMBA_UNET_NAMES:
+        raise ValueError(f"Unknown model name: {name}")
+    kwargs = dict(
+        _backbone_kwargs(config),
         output_version=v.OUTPUT,
         concat_skip=v.CONCAT_SKIP,
-        use_checkpoint=bool(v.get("USE_CHECKPOINT", False)),
         n_fft=config.DATA.STFT.N_FFT,
         hop_length=config.DATA.STFT.HOP_LENGTH,
         win_length=config.DATA.STFT.WIN_LENGTH,
         spectro_scale=config.DATA.STFT.SCALE,
         low_freq_replacement=config.TRAIN.LOW_FREQ_REPLACEMENT,
         lfr_mode=config.TRAIN.get("LFR_MODE", "torch"),
-        compute_dtype=compute,
-        scan_fp32_io=bool(v.get("SCAN_FP32_IO", False)),
     )
     if name == "DualStreamInteractiveMambaUNet":
         kwargs.update(interact=v.INTERACT,
@@ -98,6 +108,30 @@ def get_vssm(device="cuda", seed: int = 0, cls: type = VSSM, **kwargs
     initialised from a ``torch.Generator`` seeded with ``seed``. ``device``
     defaults to the card; a CUDA device without CUDA raises."""
     return _build(cls, kwargs, seed, device)
+
+
+def classifier_kwargs(config) -> Dict[str, Any]:
+    """Constructor arguments of the VMamba classifier ``VSSM`` named by a
+    configuration of MODEL.TYPE "vssm" (VMamba's classification configs,
+    MzeroMiko/VMamba classification/config.py): MODEL.NUM_CLASSES and the
+    MODEL.VSSM keys the generator reads too; DIMS is the embedding width
+    (VMamba's EMBED_DIM). The stages merge by the published v1 downsample
+    (the Swin 2×2 merge), the only one built; another raises."""
+    if config.MODEL.TYPE != "vssm":
+        raise ValueError(f"not a classifier configuration: MODEL.TYPE {config.MODEL.TYPE!r}")
+    if config.MODEL.VSSM.DOWNSAMPLE != "v1":
+        raise ValueError(f"the classifier downsamples by the v1 merge, not "
+                         f"{config.MODEL.VSSM.DOWNSAMPLE!r}")
+    return dict(_backbone_kwargs(config), num_classes=config.MODEL.NUM_CLASSES)
+
+
+def build_classifier(config, device="cuda", seed=None) -> VSSM:
+    """The VMamba classifier of ``config`` (MODEL.TYPE "vssm") in eval mode
+    on ``device``, initialised from a ``torch.Generator`` seeded with
+    ``seed`` (default ``config.SEED``). ``device`` defaults to the card; a
+    CUDA device without CUDA raises."""
+    return _build(VSSM, classifier_kwargs(config), config.SEED if seed is None else seed,
+                  device)
 
 
 def _build(cls: type, kwargs: Dict[str, Any], seed: int, device) -> torch.nn.Module:

@@ -1,3 +1,4 @@
+from .classifier import Classifier
 from .inferencer import Inferencer
 from .optim import Optimizer, make_optimizer, make_schedule
 from .states import DiscState, GenState
@@ -12,6 +13,6 @@ from .steps import (
 from .tester import Tester
 from .trainer import Trainer
 
-__all__ = ["DiscState", "GenState", "Inferencer", "Optimizer", "SEG_BUCKETS", "Tester",
-           "Trainer", "bucketed_forward", "make_eval_step", "make_forward_fn",
+__all__ = ["Classifier", "DiscState", "GenState", "Inferencer", "Optimizer", "SEG_BUCKETS",
+           "Tester", "Trainer", "bucketed_forward", "make_eval_step", "make_forward_fn",
            "make_optimizer", "make_schedule", "make_train_step", "segment_bucket_counts"]

@@ -278,29 +278,36 @@ def make_eval_step(config, generator: torch.nn.Module, mesh=None) -> Callable:
 class _Replay:
     """One captured forward: its graph, and its static inputs and output."""
 
-    def __init__(self, graph, x, hf, out):
-        self.graph, self.x, self.hf, self.out = graph, x, hf, out
+    def __init__(self, graph, inputs, out):
+        self.graph, self.inputs, self.out = graph, inputs, out
 
-    def __call__(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
-        self.x.copy_(x)
-        self.hf.copy_(hf)
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
         self.graph.replay()
         return self.out.clone()
 
 
+def signature(inputs) -> tuple:
+    """The key of a forward's graph: the shape, dtype and device of each
+    positional input."""
+    return tuple((x.shape, x.dtype, x.device) for x in inputs)
+
+
 class GraphedForward:
-    """forward(x, hf) → the generator's output in eval and inference mode,
-    replayed from one CUDA graph per signature of its inputs (the shapes,
-    dtypes and devices of x and hf), which takes the forward's kernel
-    launches off the host.
+    """forward(*inputs) → the module's output in eval and inference mode,
+    replayed from one CUDA graph per signature of its positional tensor
+    inputs (the shapes, dtypes and devices of each: x and hf for the
+    generator, the images for the classifier), which takes the forward's
+    kernel launches off the host.
 
     A signature's first call runs eagerly on the capture stream, which warms
     what a capture needs there (cuFFT plans, cuBLAS workspaces, the scans'
     look-back workspaces, ops/lookback.py); its second call captures the
-    forward and replays it; later calls replay. A replay copies x and hf
-    into the graph's inputs and returns a copy of its output, which the
-    caller owns: the next replay overwrites the graph's. All graphs share
-    one memory pool, so that memory stays near the largest forward's: each
+    forward and replays it; later calls replay. A replay copies the inputs
+    into the graph's and returns a copy of its output, which the caller
+    owns: the next replay overwrites the graph's. All graphs share one
+    memory pool, so that memory stays near the largest forward's: each
     keeps its output, replays run one after another on the caller's stream,
     and each output is copied before any other replay can write where it
     lies. CPU inputs, and calls while a capture is under way on the current
@@ -308,63 +315,65 @@ class GraphedForward:
     ``graph_replays`` (1 for a replay, else 0) to the innermost span open.
     """
 
-    def __init__(self, generator: torch.nn.Module):
-        self.generator = generator
+    def __init__(self, module: torch.nn.Module):
+        self.module = module
         self.seen = set()
         self.graphs: Dict[tuple, Callable] = {}
         self.streams: Dict[torch.device, torch.cuda.Stream] = {}
         self.pool = None
 
-    def __call__(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            if not self.graphable(x):
-                return self.generator(x, hf)
-            key = (x.shape, x.dtype, x.device, hf.shape, hf.dtype, hf.device)
+            if not self.graphable(inputs[0]):
+                return self.module(*inputs)
+            key = signature(inputs)
             graph = self.graphs.get(key)
             if graph is None:
                 if key not in self.seen:
                     self.seen.add(key)
                     add_counts(graph_replays=0)
-                    return self.warm(x, hf)
-                graph = self.graphs[key] = self.capture(x, hf)
+                    return self.warm(inputs)
+                graph = self.graphs[key] = self.capture(inputs)
             add_counts(graph_replays=1)
-            return graph(x, hf)
+            return graph(*inputs)
 
     def graphable(self, x: torch.Tensor) -> bool:
         return x.is_cuda and not torch.cuda.is_current_stream_capturing()
 
-    def warm(self, x: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
+    def warm(self, inputs) -> torch.Tensor:
         """The eager forward on the capture stream."""
-        if x.device not in self.streams:
-            self.streams[x.device] = torch.cuda.Stream(x.device)
-        stream = self.streams[x.device]
-        caller = torch.cuda.current_stream(x.device)
+        device = inputs[0].device
+        if device not in self.streams:
+            self.streams[device] = torch.cuda.Stream(device)
+        stream = self.streams[device]
+        caller = torch.cuda.current_stream(device)
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
-            out = self.generator(x, hf)
+            out = self.module(*inputs)
         caller.wait_stream(stream)
         out.record_stream(caller)
         return out
 
-    def capture(self, x: torch.Tensor, hf: torch.Tensor) -> _Replay:
+    def capture(self, inputs) -> _Replay:
         """The forward captured on the capture stream, with static copies of
-        x and hf as its inputs."""
-        static_x, static_hf = x.clone(), hf.clone()
+        the inputs as its inputs."""
+        static = [x.clone() for x in inputs]
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.streams[x.device],
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.streams[inputs[0].device],
                               capture_error_mode="thread_local"):
-            out = self.generator(static_x, static_hf)
-        return _Replay(graph, static_x, static_hf, out)
+            out = self.module(*static)
+        return _Replay(graph, static, out)
 
 
-def make_forward_fn(generator: torch.nn.Module) -> Callable:
-    """forward(x, hf) → the generator's output, in eval and inference mode;
-    on the card replayed from a CUDA graph per input shape
+def make_forward_fn(module: torch.nn.Module) -> Callable:
+    """forward(*inputs) → the module's output (the generator's from (x, hf),
+    the classifier's logits from its images), in eval and inference mode;
+    on the card replayed from a CUDA graph per input signature
     (``GraphedForward``)."""
-    generator.eval()
-    return GraphedForward(generator)
+    module.eval()
+    return GraphedForward(module)
 
 
 # Segment-batch sizes for long clips: at most 8 segments per forward, and
