@@ -129,15 +129,16 @@ raising on failure:
    step's collectives; and the CLI's ranks (--opts MESH.DP 2) on the card;
    with the dp2 step's ms and the phase's seconds beside the card's line.
 14. vssm: the VMamba classifier (models/vssm.py) at its defaults (dims 96,
-   depths 2-2-9-2, d_state 16: every SS2D on the general-N route, one
-   recurrence launch a state channel) on 224×224×3 images from a seeded
+   depths 2-2-9-2, d_state 16: without a gradient every SS2D takes the
+   N-state kernel, with one the general-N route, one recurrence launch a
+   state channel) on 224×224×3 images from a seeded
    init: its parameter count against the JAX package's; the fp32 logits at
    batch 8 with the kernels against the plain scan (and both against the
-   plain scan in fp64), with exactly 240 recurrence and no fused launches;
+   plain scan in fp64), with exactly 15 N-state and no other launches;
    the bf16 forward at batch 8 timed (CUDA events) and profiled (busy time,
-   idle share, the recurrence's device time by kernel name beside its
-   bound); the fp32 gradient of the logits against a seeded cotangent at
-   batch 2, kernels against plain, with 240 reverse launches and the peak
+   idle share, the N-state kernel's device time by kernel name); the fp32
+   gradient of the logits against a seeded cotangent at batch 2, kernels
+   against plain, with 240 recurrence and 240 reverse launches and the peak
    memory; BackboneVSSM's feature shapes; and matmul_flops of the batch-1
    forward equal to the JAX package's count. A side check of the modules at
    the class defaults (MLP ratio 4, patch embed v2: 43.76 M parameters),
@@ -157,7 +158,14 @@ raising on failure:
    exceeds its gate (its bar, or its largest chaos floor recorded on the
    card where that lies above the bar) or when an arm's defect breaks no
    gate.
-18. the script's seconds, the kernels line, the card line, and the result line.
+18. nstate: the N-state scan (csrc/nstate_scan.cu, d_state 16) against its
+   plain version at the VMamba classifier's four scan shapes at batch 8
+   (bf16 and fp32; the states split over lanes) and batch 128 (bf16; one
+   thread a chain), and at D = 33 (plain loads); one call one kernel under
+   its exported name; bitwise equal on two calls and in a CUDA graph's
+   replay; device time beside its byte bound and its exp bound, summed over
+   a forward's 15 calls. In a process of its own (nstate_process).
+19. the script's seconds, the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -212,6 +220,8 @@ from vm_asr_tpu_torch.ops import (
     selective_scan_fused_bwd_plain,
     selective_scan_fused_fwd,
     selective_scan_fused_plain,
+    selective_scan_nstate,
+    selective_scan_nstate_plain,
 )
 from vm_asr_tpu_torch.ops import lookback
 from vm_asr_tpu_torch.ops.build import SOURCES, build, ptxas_info
@@ -222,6 +232,11 @@ from vm_asr_tpu_torch.ops.linear_recurrence import (
     lr_tile_layout,
 )
 from vm_asr_tpu_torch.ops.selective_scan_fused import BWD_KERNELS, FWD_KERNELS, fwd_tile_layout
+from vm_asr_tpu_torch.ops.selective_scan_nstate import (
+    NSTATE_KERNELS,
+    NSTATE_N,
+    nstate_tile_layout,
+)
 from vm_asr_tpu_torch.train import tester as tester_module
 from vm_asr_tpu_torch.train import (
     DiscState,
@@ -285,6 +300,17 @@ BF16_CKPT_BARS = 10.0
 # of the value apart; dA/dbias/dD stay fp32.
 BWD_FP32_TOL = dict(rtol=1e-3, atol=1e-3)
 BWD_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+# The N-state kernel against its plain version, elementwise. fp32: the
+# FP32_TOL bar (y sums 16 states, each its recurrence associated otherwise
+# and its decay from the SFU's exp2, 7e-7 of the output's scale apart on an
+# H100). bf16: one fp32 result rounded once on each side, as BF16_TOL, but
+# near 0 the two fp32 sums, ~1e-5 apart at the classifier's scale, round
+# to bf16 values that far apart, above BF16_TOL's 1e-5.
+NSTATE_FP32_TOL = FP32_TOL
+NSTATE_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+# The N-state kernel's exp bound: N exponentials an element (softplus's one
+# aside) on the SFU, 16 results a clock on each of 132 SMs, at 1.755 GHz.
+SFU_EXP_PER_S = 132 * 16 * 1.755e9
 # Generator gradient, fp32 (TF32 off), per tensor, against a witness that
 # runs the plain scan in fp64 (the rest of the model fp32), for the kernels
 # and for the plain fp32 scan alike: max |diff| <= GRAD_REL · max |fp64| +
@@ -517,12 +543,18 @@ COUNTED = (selective_scan_fused, selective_scan_fused_bwd, linear_recurrence,
 
 
 def zero_counts():
-    for fn in COUNTED:
+    for fn in COUNTED + (selective_scan_nstate,):
         fn.launches = 0
 
 
 def read_counts():
     return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def vssm_counts():
+    """read_counts with the N-state kernel's launches: the classifier's
+    phases, the only ones that run it."""
+    return dict(read_counts(), selective_scan_nstate=selective_scan_nstate.launches)
 
 
 def check_close(name, got, ref, tol):
@@ -711,6 +743,136 @@ def check_lr_reverse(rows, l, d, gen):
                 plain_ms=cuda_ms(lambda: linear_recurrence_reverse_plain(a, h, grad),
                                  reps=3, per=3),
                 bound_ms=bms, bound_by=by)
+
+
+def nstate_inputs(batch, l, kd, dtype, gen):
+    """The N-state kernel's inputs: u, Δ, B and C as the fused forward's
+    checks draw them, dt_bias as the model initialises it, and A = −exp of
+    log(1..16) moved by a seeded N(0, 0.3²), a learned-looking decay set."""
+    g = torch.Generator(device="cuda").manual_seed(batch * 1_000_003 + l * 1009 + kd + 7)
+    _, bias, dsk = init_ranges(kd, gen)
+    u = torch.randn(batch, l, kd, device="cuda", generator=g).to(dtype)
+    dts = (0.5 * torch.randn(batch, l, kd, device="cuda", generator=g)).to(dtype)
+    bs = torch.randn(batch, l, K, NSTATE_N, device="cuda", generator=g).to(dtype)
+    cs = torch.randn(batch, l, K, NSTATE_N, device="cuda", generator=g).to(dtype)
+    logs = torch.arange(1, NSTATE_N + 1, device="cuda").log().expand(kd, NSTATE_N)
+    a = -torch.exp(logs + 0.3 * torch.randn(kd, NSTATE_N, device="cuda", generator=g))
+    return (u, dts, bs, cs, a, bias, dsk, K)
+
+
+def profile_nstate(batch, l, kd, dtype, gen):
+    """One N-state call is one kernel under the module's exported name, and
+    its device time by torch.profiler: (empty captures taken again, device
+    ms, passes). Every shape is profiled before any is checked: on the card
+    the profiler's captures came back empty for the rest of the process
+    after the batch-128 check of the first stage (its plain version and
+    timing)."""
+    args = nstate_inputs(batch, l, kd, dtype, gen)
+    fn = lambda: selective_scan_nstate(*args)  # noqa: E731
+    empty = one_kernel(f"nstate {(batch, l, kd)} {dtype}", fn, NSTATE_KERNELS,
+                       selective_scan_nstate, lambda out: None)
+    return (empty, *device_split(fn, NSTATE_KERNELS))
+
+
+def check_nstate(batch, l, kd, dtype, gen):
+    """The N-state kernel's y against its plain version (run on 16 rows at a
+    time, to hold the batch-128 check's memory to a few GB); a second call
+    bitwise the first; times beside the byte and exp bounds."""
+    args = nstate_inputs(batch, l, kd, dtype, gen)
+    name = f"nstate {(batch, l, kd)} {dtype}"
+    fn = lambda: selective_scan_nstate(*args)  # noqa: E731
+
+    def plain():
+        return torch.cat([selective_scan_nstate_plain(*(t[i:i + 16] for t in args[:4]), *args[4:])
+                          for i in range(0, batch, 16)])
+
+    tol = NSTATE_BF16_TOL if dtype == torch.bfloat16 else NSTATE_FP32_TOL
+    y = fn()
+    check_same(name, (y,), (fn(),))
+    err = check_close(name, y, plain(), tol)
+    size = y.element_size()
+    # u, dts read and y written; B, C read; A, bias, D_skip read.
+    nbytes = (3 * batch * l * kd + 2 * batch * l * K * NSTATE_N) * size \
+        + (kd * NSTATE_N + 2 * kd) * 4
+    return dict(kernel="selective_scan_nstate", shape=[batch, l, kd], dtype=str(dtype),
+                tile=list(nstate_tile_layout(batch, kd, K, NSTATE_N, size)),
+                max_abs_err=err, tol=tol, bytes=nbytes, ms=cuda_ms(fn),
+                plain_ms=cuda_ms(plain, reps=3, per=1), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                exp_bound_ms=batch * l * kd * NSTATE_N / SFU_EXP_PER_S * 1e3)
+
+
+def nstate_graph_replay(batch, l, kd, dtype, gen):
+    """The N-state call captured in a CUDA graph on a side stream: its replay
+    bitwise the eager call."""
+    args = nstate_inputs(batch, l, kd, dtype, gen)
+    y = selective_scan_nstate(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        selective_scan_nstate(*args)  # the capture stream's warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = selective_scan_nstate(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    check_same(f"nstate {(batch, l, kd)} {dtype} graph", (y,), (y_graph,))
+
+
+def nstate_phase(smi):
+    """Phase 18: the N-state kernel at the classifier's scan shapes, batch 8
+    and 128, and at D = 33; sums over one forward's calls."""
+    gen = torch.Generator().manual_seed(19)
+    # The classifier's shapes; then D = 33: groups of 3 channels, staged by
+    # plain loads, and L no multiple of 16.
+    shapes = [(batch, l, kd, dtype) for batch, dtypes in (
+        (8, (torch.bfloat16, torch.float32)), (128, (torch.bfloat16,)))
+        for dtype in dtypes for (l, kd) in VSSM_SCANS]
+    shapes += [(2, 1000, 132, dtype) for dtype in (torch.bfloat16, torch.float32)]
+    profiled = [profile_nstate(*shape, gen) for shape in shapes]
+    checks = []
+    for shape, (empty, dev, passes) in zip(shapes, profiled):
+        c = dict(check_nstate(*shape, gen), empty_captures=empty, device_ms=dev, passes=passes)
+        checks.append(c)
+        torch.cuda.empty_cache()
+        print(f"{c['kernel']} {tuple(c['shape'])} {c['dtype'][6:]} tile {tuple(c['tile'])}: "
+              f"max|err| {c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms "
+              f"(device {fmt_ms(c['device_ms'])}); bitwise repeatable; one kernel per call "
+              f"({c['empty_captures']} empty captures taken again), plain {c['plain_ms']:.3f} "
+              f"ms, bounds: bytes {c['bound_ms']:.4f} ms ({c['bytes'] / 1e6:.2f} MB), exp "
+              f"{c['exp_bound_ms']:.4f} ms", flush=True)
+    for shape in shapes:
+        nstate_graph_replay(*shape, gen)
+    print(f"a CUDA graph's replay bitwise the eager call at each of the {len(shapes)} shapes")
+    report = {"checks": checks}
+    for batch in (8, 128):
+        rows = {tuple(c["shape"][1:]): c for c in checks
+                if c["shape"][0] == batch and c["dtype"] == "torch.bfloat16"}
+        per = {key: sum(n * rows[s][key] for s, n in VSSM_SCANS.items())
+               for key in ("ms", "plain_ms", "bound_ms", "exp_bound_ms")}
+        dev = [rows[s]["device_ms"] for s in VSSM_SCANS]
+        per["device_ms"] = None if None in dev else sum(
+            n * rows[s]["device_ms"] for s, n in VSSM_SCANS.items())
+        report[f"forward_batch{batch}"] = per
+        print(f"N-state scan per VSSM forward (batch {batch}, bf16, "
+              f"{sum(VSSM_SCANS.values())} calls): device {fmt_ms(per['device_ms'])}, wrapper "
+              f"{per['ms']:.4f} ms, plain {per['plain_ms']:.2f} ms; bounds: bytes "
+              f"{per['bound_ms']:.4f} ms, exp {per['exp_bound_ms']:.4f} ms  [{smi}]")
+    return report
+
+
+def nstate_process(smi):
+    """Phase 18 in a process of its own, which returns its report: on the
+    card the profiler's captures came back empty for the rest of a process
+    after some phases (the trajectory phase; this phase's own batch-128
+    checks, see profile_nstate), cause not found."""
+    out = OUT / "nstate.json"
+    code = ("import json, sys, chip_smoke as c; "
+            "open(sys.argv[2], 'w').write(json.dumps(c.nstate_phase(sys.argv[1])))")
+    proc = subprocess.run([sys.executable, "-c", code, smi, str(out)], cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the N-state phase's process exited {proc.returncode}")
+    return json.loads(out.read_text())
 
 
 def route_host_us(gen, rounds: int = 4, calls: int = 50):
@@ -1336,13 +1498,15 @@ def variant_config(yaml_name: str, amp: bool, gan: bool = False, overrides=None)
     return c
 
 
-def scan_launches(model) -> dict:
+def scan_launches(model, grad: bool = True) -> dict:
     """Scan launches of one forward of ``model``, derived from its SS2Ds and
     the routing of ops/scan_api.py (the fused kernel where N = 1 and
-    K·D ≥ 128, else one recurrence launch per state channel) and from how
-    often each stage runs: once, but the shared mag decoder twice where the
-    phase stream goes through it unfused (concat skips, no phase-decoder
-    fix, no FUSE_STREAMS)."""
+    K·D ≥ 128; the N-state kernel where N = 16 and, as ``grad`` says, no
+    gradient is needed; else one recurrence launch per state channel) and
+    from how often each stage runs: once, but the shared mag decoder twice
+    where the phase stream goes through it unfused (concat skips, no
+    phase-decoder fix, no FUSE_STREAMS). The N-state count is there only
+    for a model that has such a scan."""
     shared = getattr(model, "core_phase", None) is not None \
         and not model.phase_decoders_used and not model.fuse_streams
     out = Counter(selective_scan_fused=0, linear_recurrence=0)
@@ -1353,6 +1517,8 @@ def scan_launches(model) -> dict:
                 continue
             if m.d_state == 1 and K * m.d_inner >= 128:
                 out["selective_scan_fused"] += calls
+            elif m.d_state == NSTATE_N and not grad:
+                out["selective_scan_nstate"] += calls
             else:
                 out["linear_recurrence"] += calls * m.d_state
     return dict(out)
@@ -1364,7 +1530,7 @@ def variant_forward(label, cfg32, cfg16, smi):
     the kernels' forward; then the bf16 forward's wall time (CUDA events) and
     device busy time (torch.profiler)."""
     model = get_generator(cfg32, "cuda")
-    want = scan_launches(model)
+    want = scan_launches(model, grad=False)
     seg = int(cfg32.DATA.SEGMENT * cfg32.DATA.TARGET_SR)
     x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=3)[None, None]).cuda()
     hf = torch.tensor([171], device="cuda")
@@ -3039,8 +3205,9 @@ def parallel_phase(smi):
 
 # The VMamba classifier at its defaults (models/vssm.py: dims 96, depths
 # 2-2-9-2, d_state 16) on a 224×224×3 image: stages at 56², 28², 14², 7²
-# with K·d_inner = 768..6144, every SS2D on the general-N route, one
-# recurrence launch a state channel. (L, K·D) → SS2Ds.
+# with K·d_inner = 768..6144; without a gradient every SS2D takes the
+# N-state kernel, with one the general-N route, one recurrence launch a
+# state channel. (L, K·D) → SS2Ds.
 VSSM_SCANS = {(3136, 768): 2, (784, 1536): 2, (196, 3072): 9, (49, 6144): 2}
 VSSM_N = 16
 VSSM_IMAGE = 224
@@ -3069,9 +3236,10 @@ def vssm_phase(smi):
     """The VMamba classifier at its full default width on the card (phase 14
     of the module docstring). Returns the report."""
     report = {}
-    launches = sum(VSSM_SCANS.values()) * VSSM_N
-    want_fwd = dict(selective_scan_fused=0, selective_scan_fused_bwd=0,
-                    linear_recurrence=launches, linear_recurrence_reverse=0)
+    scans = sum(VSSM_SCANS.values())
+    launches = scans * VSSM_N
+    want_fwd = dict(selective_scan_fused=0, selective_scan_fused_bwd=0, linear_recurrence=0,
+                    linear_recurrence_reverse=0, selective_scan_nstate=scans)
     model = get_vssm("cuda", seed=0)
     params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -3089,7 +3257,7 @@ def vssm_phase(smi):
             zero_counts()
             out[impl] = model(x)
             torch.cuda.synchronize()
-            report[f"{impl}_launches"] = read_counts()
+            report[f"{impl}_launches"] = vssm_counts()
             for h in hooks:
                 h.remove()
             hooks = []
@@ -3112,36 +3280,37 @@ def vssm_phase(smi):
     report.update(params=params, rel=rel, tol=VSSM_REL_TOL)
     del out
 
-    # bf16 compute, batch 8: wall, busy, idle share, the recurrence's time.
+    # bf16 compute, batch 8: wall, busy, idle share, the N-state kernel's time.
     model16 = get_vssm("cuda", seed=0, compute_dtype=torch.bfloat16)
     model16.load_state_dict(model.state_dict())
     fwd = lambda: model16(x)  # noqa: E731
+    nstate_names = set(NSTATE_KERNELS["scan"])
     with torch.inference_mode():
         wall = cuda_ms(fwd, reps=5, per=1)
         for _ in range(3):  # a capture that dropped events counts the calls short
             events = device_kernels(fwd)
-            ms_by, calls = by_wrapper(events)
-            if calls["linear_recurrence"] == launches:
+            calls = by_wrapper(events)[1]
+            nstate = [(e_ - s_) / 1e3 for name, s_, e_ in events if name in nstate_names]
+            if len(nstate) == scans:
                 break
     busy = busy_us(events) / 1e3
     by_name = Counter()
     for name, s_, e_ in events:
         by_name[name] += (e_ - s_) / 1e3
-    fwd_bound = vssm_bound_ms(VSSM_BATCH)[0]
     report["bf16_forward"] = dict(
         batch=VSSM_BATCH, wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
-        device_events=len(events), recurrence_device_ms=ms_by["linear_recurrence"],
-        recurrence_calls=dict(calls), recurrence_bound_ms=fwd_bound[0],
-        images_per_s=VSSM_BATCH / (wall / 1e3), top=by_name.most_common(10))
+        device_events=len(events), nstate_device_ms=sum(nstate), nstate_calls=len(nstate),
+        other_scan_calls=dict(calls), images_per_s=VSSM_BATCH / (wall / 1e3),
+        top=by_name.most_common(10))
     print(f"bf16 forward, batch {VSSM_BATCH}: wall {wall:.2f} ms (CUDA events), device busy "
           f"{busy:.2f} ms in {len(events)} events, idle share {1 - busy / wall:.3f}; the "
-          f"recurrence {ms_by['linear_recurrence']:.3f} ms device in "
-          f"{calls['linear_recurrence']} calls by kernel name (bound {fwd_bound[0]:.3f} ms, "
-          f"{fwd_bound[1]}); {VSSM_BATCH / (wall / 1e3):.1f} images/s  [{smi}]")
+          f"N-state kernel {sum(nstate):.3f} ms device in {len(nstate)} calls by kernel name; "
+          f"{VSSM_BATCH / (wall / 1e3):.1f} images/s  [{smi}]")
     for n, t in by_name.most_common(10):
         print(f"  {t:8.3f} ms  {n[:100]}")
-    if dict(calls) != {"linear_recurrence": launches}:
-        raise AssertionError(f"bf16 forward: scan calls by kernel name {dict(calls)}")
+    if len(nstate) != scans or any(calls.values()):
+        raise AssertionError(f"bf16 forward: {len(nstate)} N-state calls by kernel name, "
+                             f"other scans {dict(calls)}")
     del model16
 
     # fp32 gradient of <logits, a seeded cotangent>, batch 2, kernels vs plain.
@@ -3157,7 +3326,7 @@ def vssm_phase(smi):
         logits = model(xg)
         grads[impl] = torch.autograd.grad((logits * ct).sum(), [p_ for _, p_ in named])
         torch.cuda.synchronize()
-        counts[impl] = read_counts()
+        counts[impl] = vssm_counts()
         peaks[impl] = torch.cuda.max_memory_allocated() / 1e9
         del logits
     set_scan_impl(model, "kernel")
@@ -3168,7 +3337,8 @@ def vssm_phase(smi):
     worst = int(np.argmax(ratios))
     zero = [n for (n, _), g_ in zip(named, grads["kernel"])
             if ".op." in n and not g_.abs().max().item() > 0]
-    want_grad = dict(want_fwd, linear_recurrence_reverse=launches)
+    want_grad = dict(want_fwd, linear_recurrence=launches, linear_recurrence_reverse=launches,
+                     selective_scan_nstate=0)
     report["gradient"] = dict(
         batch=VSSM_GRAD_BATCH, worst_ratio=ratios[worst], worst_tensor=named[worst][0],
         rel=GRAD_REL, floor=GRAD_FLOOR, top=top, launches=counts["kernel"],
@@ -3188,7 +3358,7 @@ def vssm_phase(smi):
     with torch.inference_mode():
         zero_counts()
         feats = backbone(x[:1])
-        bb_counts = read_counts()
+        bb_counts = vssm_counts()
         one = x[:1].clone()
         flops = matmul_flops(model, one)
         total = model_flops(model, one)
@@ -3674,7 +3844,7 @@ def main() -> int:
     report["parallel"] = parallel_phase(smi)
 
     t0 = phase("vssm: the VMamba classifier at its defaults (dims 96, depths 2-2-9-2, "
-               "d_state 16), 224x224x3, through the recurrence kernel")
+               "d_state 16), 224x224x3, through the N-state kernel")
     report["vssm"] = vssm_phase(smi)
     print(f"vssm phase in {time.perf_counter() - t0:.1f} s")
 
@@ -3691,6 +3861,10 @@ def main() -> int:
                "against the JAX Trainer's recorded curves")
     report["trajectory"] = trajectory_phase(smi)
     print(f"trajectory phase in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("N-state scan: the d_state-16 kernel at the classifier's shapes, batch 8 and 128")
+    report["nstate"] = nstate_process(smi)
+    print(f"N-state scan checked in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served
@@ -3776,9 +3950,10 @@ def main() -> int:
               "vm_asr_tpu/ops/linear_recurrence.py:241",
               [("linear_recurrence_reverse", LR_CALLS, "torch.float32")], repeatable=repeat),
     ]
-    # The classifier's launches and the recurrence's times beside its bound:
-    # in the profiled bf16 forward (vssm phase), and summed over one
-    # forward's (batch 8) or one gradient's (batch 2) calls from the kernels
+    # The classifier's launches and the scans' times beside their bounds:
+    # the N-state kernel in the profiled bf16 forward (vssm phase); the
+    # recurrence, which runs its SS2Ds only under autograd, summed over a
+    # batch-8 forward's or a batch-2 gradient's calls from the kernels
     # phase's rows at its shapes; every kernel's launches in the checks phase.
     vssm, fwd16 = report["vssm"], report["vssm"]["bf16_forward"]
 
@@ -3801,11 +3976,12 @@ def main() -> int:
         k["vssm_gradient_launches"] = vssm["gradient"]["launches"][k["name"]]
     lr_vssm = per_vssm_pass("linear_recurrence", VSSM_BATCH)
     rev_vssm = per_vssm_pass("linear_recurrence_reverse", VSSM_GRAD_BATCH)
-    kernels[2].update(vssm_forward=lr_vssm,
-                      vssm_bf16_forward_in_model_device_ms=fwd16["recurrence_device_ms"])
+    kernels[2].update(vssm_forward=lr_vssm)
     kernels[3].update(vssm_gradient=rev_vssm)
-    print(f"recurrence per VSSM forward (batch {VSSM_BATCH}, {sum(VSSM_SCANS.values()) * VSSM_N} "
-          f"calls): in the profiled bf16 forward {fwd16['recurrence_device_ms']:.4f} ms device; "
+    print(f"N-state kernel in the profiled bf16 VSSM forward (batch {VSSM_BATCH}): "
+          f"{fwd16['nstate_device_ms']:.4f} ms device in {fwd16['nstate_calls']} calls; "
+          f"recurrence per VSSM forward under autograd (batch {VSSM_BATCH}, "
+          f"{sum(VSSM_SCANS.values()) * VSSM_N} calls): "
           f"back to back {fmt_ms(lr_vssm['device_ms'])} device, {lr_vssm['ms']:.4f} ms wrapper; "
           f"bound {lr_vssm['bound_ms']:.4f} ms. Reverse per VSSM gradient (batch "
           f"{VSSM_GRAD_BATCH}): {fmt_ms(rev_vssm['device_ms'])} device, {rev_vssm['ms']:.4f} ms "

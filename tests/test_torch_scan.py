@@ -22,8 +22,10 @@ from vm_asr_tpu_torch.ops import (
     scan_api,
     selective_scan,
     selective_scan_fused,
+    selective_scan_nstate,
     selective_scan_ref,
 )
+from vm_asr_tpu_torch.ops.selective_scan_nstate import nstate_tile_layout, nstate_tile_smem
 
 # fp32 scans summed in another order (doubling scan vs chunked Pallas scan):
 # the bar of tests/test_fused_scan.py:29-30.
@@ -128,15 +130,23 @@ class _Spy:
         (4, 16, 1, "lr"),      # K·D = 64: out_vss2
         (4, 2, 1, "lr"),       # K·D = 8: out_vss3
         (4, 8, 2, "lr"),       # N = 2: the general-N loop
+        (4, 16, 16, "nstate"),   # N = 16 without a gradient: the N-state kernel
+        (4, 16, 16, "lr_grad"),  # N = 16 with one: the general-N loop
     ],
 )
 def test_selective_scan_routing(k, d, n, branch, monkeypatch):
-    args = _scan_inputs(np.random.default_rng(3), 2, 333, k, d, n)
+    # N = 16 at L = 100: 16 interpret-mode recurrences on the JAX side.
+    args = _scan_inputs(np.random.default_rng(3), 2, 100 if n == 16 else 333, k, d, n)
     spies = {"fused": _Spy(scan_api.selective_scan_fused),
-             "lr": _Spy(scan_api.linear_recurrence)}
+             "lr": _Spy(scan_api.linear_recurrence),
+             "nstate": _Spy(scan_api.selective_scan_nstate)}
     monkeypatch.setattr(scan_api, "selective_scan_fused", spies["fused"])
     monkeypatch.setattr(scan_api, "linear_recurrence", spies["lr"])
-    got = selective_scan(*map(_t, args), delta_softplus=True).numpy()
+    monkeypatch.setattr(scan_api, "selective_scan_nstate", spies["nstate"])
+    grad = branch == "lr_grad"
+    inputs = [_t(x).requires_grad_(grad) for x in args]
+    got = selective_scan(*inputs, delta_softplus=True).detach().numpy()
+    branch = "lr" if grad else branch
     assert spies[branch].calls == (n if branch == "lr" else 1)
     assert sum(s.calls for s in spies.values()) == spies[branch].calls
     jargs = [jnp.asarray(x) for x in args]
@@ -214,3 +224,38 @@ def test_kernel_wrappers_reject_unsupported_devices():
     p = torch.empty((8,), device="meta")
     with pytest.raises(ValueError):
         selective_scan_fused(u, u, bs, bs, p, p, p, 4)
+    bcn = torch.empty((1, 8, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        selective_scan_nstate(u, u, bcn, bcn, torch.empty((8, 16), device="meta"), p, p, 4)
+
+
+# VMamba-T's scans, (L, K·D) (chip_smoke.py:VSSM_SCANS), and the geometry
+# the N-state kernel takes there: (lanes, channels, threads) at batch 128,
+# where the chains fill the card one thread each, and at batch 8, where
+# lanes split the states so that 2^16 threads start.
+@pytest.mark.parametrize("batch,l,kd,want", [
+    (128, 3136, 768, (1, 96, 96)),
+    (128, 784, 1536, (1, 128, 128)),
+    (128, 196, 3072, (1, 128, 128)),
+    (128, 49, 6144, (1, 128, 128)),
+    (8, 3136, 768, (16, 8, 128)),
+    (8, 784, 1536, (8, 16, 128)),
+    (8, 196, 3072, (4, 32, 128)),
+    (8, 49, 6144, (2, 64, 128)),
+    (2, 1000, 132, (16, 3, 64)),  # D = 33: a group of 3 channels, half a CTA idle
+])
+def test_nstate_tile_layout(batch, l, kd, want):
+    d = kd // 4
+    for itemsize in (2, 4):
+        tile = nstate_tile_layout(batch, kd, 4, 16, itemsize)
+        assert tile[:3] == want
+        assert d % tile.channels == 0 and 16 % tile.lanes == 0
+        assert tile.channels * tile.lanes <= tile.threads <= 128 and tile.threads % 32 == 0
+        assert batch * kd * tile.lanes >= 2 ** 16 or tile.lanes == 16
+        assert tile.smem_bytes == nstate_tile_smem(tile.channels, 16, itemsize)
+    # The shared memory (csrc/nstate_scan.cu:ns_smem_bytes): two buffers of
+    # u, dts (16 × G) and B, C (16 × 2 × 16), and bf16's fp32 copy of B, C.
+    assert nstate_tile_smem(96, 16, 2) == 2 * (2 * 3072 + 1024) + 2048
+    assert nstate_tile_smem(3, 16, 4) == 2 * (2 * 192 + 2048)
+    with pytest.raises(ValueError):
+        nstate_tile_layout(batch, kd, 4, 8, 2)

@@ -19,6 +19,7 @@ from .selective_scan_fused import (
     selective_scan_fused_fwd,
     selective_scan_fused_plain,
 )
+from .selective_scan_nstate import selective_scan_nstate, selective_scan_nstate_plain
 from .selective_scan_ref import linear_recurrence_ref, selective_scan_ref, softplus
 
 __all__ = [
@@ -36,6 +37,8 @@ __all__ = [
     "selective_scan_fused_bwd_plain",
     "selective_scan_fused_fwd",
     "selective_scan_fused_plain",
+    "selective_scan_nstate",
+    "selective_scan_nstate_plain",
     "selective_scan_ref",
     "seq_sharded_selective_scan",
     "softplus",

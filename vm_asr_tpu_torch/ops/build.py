@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_scan.cu", "fused_scan_bwd.cu", "linear_recurrence.cu")
+SOURCES = ("fused_scan.cu", "fused_scan_bwd.cu", "linear_recurrence.cu", "nstate_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,8 +1,10 @@
 """Selective-scan API in the JAX package's (B, L, K, D) layout.
 
 Port of vm_asr_tpu/ops/scan_api.py. The N = 1 case with K·D ≥ 128 goes to the
-fused kernel; every other case runs the prologue and epilogue in torch
-around the linear-recurrence kernel:
+fused kernel; N = 16 without a gradient to the fused N-state kernel
+(ops/selective_scan_nstate.py, which the JAX package has no counterpart
+of); every other case runs the prologue and epilogue in torch around the
+linear-recurrence kernel:
 
     dt  = softplus(dts + dt_bias)                 (fp32)
     a_n = exp(dt * A_n);  b_n = dt * B_n * u
@@ -32,6 +34,7 @@ import torch
 
 from .linear_recurrence import linear_recurrence, linear_recurrence_plain
 from .selective_scan_fused import selective_scan_fused, selective_scan_fused_plain
+from .selective_scan_nstate import NSTATE_N, selective_scan_nstate
 from .selective_scan_ref import softplus
 
 IMPLS = ("kernel", "plain", "plain64")
@@ -93,6 +96,31 @@ def selective_scan(
             Bs[..., 0].to(u.dtype).contiguous(),
             Cs[..., 0].to(u.dtype).contiguous(),
             A[..., 0].to(maths).reshape(k * d).contiguous(),
+            dt_bias.to(maths).reshape(k * d).contiguous(),
+            D_skip.to(maths).reshape(k * d).contiguous(),
+            k,
+        )
+        return y.reshape(b, l, k, d).to(in_dtype)
+
+    if (
+        n == NSTATE_N
+        and impl == "kernel"
+        and delta_softplus
+        and D_skip is not None
+        and dt_bias is not None
+        and u.dtype in (torch.float32, torch.bfloat16)
+        # Forward only: with a gradient the loop below stays, its backward
+        # the reverse recurrence. The kernel wrapper has no vmap rule.
+        and not (torch.is_grad_enabled()
+                 and any(t.requires_grad for t in (u, dts, A, Bs, Cs, D_skip, dt_bias)))
+        and not torch._C._functorch.is_batchedtensor(u)
+    ):
+        y = selective_scan_nstate(
+            u.reshape(b, l, k * d).contiguous(),
+            dts.to(u.dtype).reshape(b, l, k * d).contiguous(),
+            Bs.to(u.dtype).contiguous(),
+            Cs.to(u.dtype).contiguous(),
+            A.to(maths).reshape(k * d, n).contiguous(),
             dt_bias.to(maths).reshape(k * d).contiguous(),
             D_skip.to(maths).reshape(k * d).contiguous(),
             k,
