@@ -86,10 +86,14 @@ raising on failure:
    SS2Ds and routing, and its bf16 forward timed; SINGLE through the CLI
    (train 4 steps with validation, checkpoints and one profiled step,
    --eval of the best checkpoint on two clips, --inference on one) with
-   exact launch counts; the latent layout's fp32 generator gradient
-   (the fused backward at D = 512) against the plain-fp64-scan witness; and
-   a SINGLE generator step with and without USE_CHECKPOINT (gradients,
-   launches and peak memory).
+   exact launch counts; the fp32 generator gradients of the latent layout
+   (the fused backward at D = 512) and of FUSE_STREAMS (the mag decoder's
+   scans at 2B rows) against the plain-fp64-scan witness; the FUSE_STREAMS
+   GAN step (MPD, AdamW) at batch 8 in bf16, 3 warm-up and 5 timed steps,
+   with launches derived from its SS2Ds, finite losses and every parameter
+   with a gradient changed; the flagship generator at batch 32 (the fused
+   kernels' 256-step chunks) as the variants' forwards are checked; and a SINGLE generator step
+   with and without USE_CHECKPOINT (gradients, launches and peak memory).
 11. stacked and adversarial options: the fused forward with two parameter
    sets (the stream-stacked generator's one launch for both streams)
    against its plain version at every stacked flagship shape (batch 1 and
@@ -147,25 +151,21 @@ raising on failure:
    ``vssm_tiny.classify`` cell.
 15. checks: vm_asr_tpu_torch.checks with --grid (every kernel against its
    plain version at the JAX package's grid, and the micro-benchmarks).
-16. bench: the stages of python -m vm_asr_tpu_torch.bench at the flagship's
-   width with cut iterations (BENCH_*): seven lines, each finite, with the
-   card's name and power limit, busy ms, idle share and peak memory, and
-   every share in (0, 100].
-17. trajectory: python -m vm_asr_tpu_torch.trajectory and ... --gan, two
+16. trajectory: python -m vm_asr_tpu_torch.trajectory and ... --gan, two
    processes side by side, 12 epochs in fp32 against the JAX Trainer's
    curves in artifacts/trajectory_torch, with the chaos floor and the
    defect, on torch's deterministic algorithms; fails when an arm's gap
    exceeds its gate (its bar, or its largest chaos floor recorded on the
    card where that lies above the bar) or when an arm's defect breaks no
    gate.
-18. nstate: the N-state scan (csrc/nstate_scan.cu, d_state 16) against its
+17. nstate: the N-state scan (csrc/nstate_scan.cu, d_state 16) against its
    plain version at the VMamba classifier's four scan shapes at batch 8
    (bf16 and fp32; the states split over lanes) and batch 128 (bf16; one
    thread a chain), and at D = 33 (plain loads); one call one kernel under
    its exported name; bitwise equal on two calls and in a CUDA graph's
    replay; device time beside its byte bound and its exp bound, summed over
    a forward's 15 calls. In a process of its own (nstate_process).
-19. the script's seconds, the kernels line, the card line, and the result line.
+18. the script's seconds, the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -190,7 +190,6 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from vm_asr_tpu_torch import bench as port_bench
 from vm_asr_tpu_torch import checks as port_checks
 from vm_asr_tpu_torch import cli
 from vm_asr_tpu_torch.core import default_config, load_config, update_config
@@ -1470,6 +1469,14 @@ VARIANT_OPTIONS = {
     "d_state 2": {"MODEL.VSSM.SSM_D_STATE": 2},
 }
 LATENT = "latent dims (16, 32, 64, 128, 256)"
+FUSE = "FUSE_STREAMS"
+# The FUSE_STREAMS GAN step's batch (its decoder scans at 16 rows) and its
+# warm-up and timed steps.
+FUSE_BATCH = 8
+FUSE_WARMUP, FUSE_TIMED = 3, 5
+# The widest flagship forward checked: the fused kernels at their longest
+# chunks (256 steps at L = 16384, K·D = 128; 16 at batch 1).
+WIDE_BATCH = 32
 
 
 def variant_config(yaml_name: str, amp: bool, gan: bool = False, overrides=None):
@@ -1524,16 +1531,17 @@ def scan_launches(model, grad: bool = True) -> dict:
     return dict(out)
 
 
-def variant_forward(label, cfg32, cfg16, smi):
-    """One batch-1 flagship segment through the variant in fp32 with the
+def variant_forward(label, cfg32, cfg16, smi, batch: int = 1):
+    """``batch`` flagship segments through the variant in fp32 with the
     kernels and with the plain scan (TF32 off), with the exact launches of
     the kernels' forward; then the bf16 forward's wall time (CUDA events) and
     device busy time (torch.profiler)."""
     model = get_generator(cfg32, "cuda")
     want = scan_launches(model, grad=False)
     seg = int(cfg32.DATA.SEGMENT * cfg32.DATA.TARGET_SR)
-    x = torch.from_numpy(speech_like(seg / 48000, 48000, seed=3)[None, None]).cuda()
-    hf = torch.tensor([171], device="cuda")
+    x = torch.from_numpy(np.stack([speech_like(seg / 48000, 48000, seed=3 + i)
+                                   for i in range(batch)])[:, None]).cuda()
+    hf = torch.full((batch,), 171, device="cuda")
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1556,12 +1564,13 @@ def variant_forward(label, cfg32, cfg16, smi):
         wall = cuda_ms(fwd, reps=5, per=1)
         events = device_kernels(fwd)
     busy = busy_us(events) / 1e3 if events else None
-    row = dict(variant=label, launches=got, want=want_all, rel_err=rel, tol=MODEL_REL_TOL,
-               finite=finite, params=sum(p.numel() for p in model16.parameters()),
+    row = dict(variant=label, batch=batch, launches=got, want=want_all, rel_err=rel,
+               tol=MODEL_REL_TOL, finite=finite,
+               params=sum(p.numel() for p in model16.parameters()),
                bf16_wall_ms=wall, bf16_device_busy_ms=busy, device_events=len(events))
     print(f"{label}: {row['params']} parameters; fp32 max|kernel - plain| / max|plain| "
           f"{rel:.3e} (tol {MODEL_REL_TOL}), finite {finite}; launches per forward {got} "
-          f"(derived {want}); bf16 batch-1 forward {wall:.2f} ms wall (CUDA events), "
+          f"(derived {want}); bf16 batch-{batch} forward {wall:.2f} ms wall (CUDA events), "
           f"device busy {fmt_ms(busy)} in {len(events)} events  [{smi}]")
     if not finite or not rel <= MODEL_REL_TOL or got != want_all:
         raise AssertionError(f"variant {label} failed: {row}")
@@ -1741,11 +1750,41 @@ def single_cli_phase(smi, per_fwd):
                 inference_rtf=rtf), train_counts
 
 
+def fuse_streams_step(smi):
+    """The flagship GAN train step (MPD, AdamW) with FUSE_STREAMS at batch
+    FUSE_BATCH, bf16: FUSE_WARMUP warm-up and FUSE_TIMED timed steps (CUDA
+    events) with the launches derived from its SS2Ds, finite losses, every
+    parameter whose first-step gradient exceeds AdamW's eps changed, and
+    the peak memory."""
+    cfg = variant_config(CONFIG.name, amp=True, gan=True, overrides={
+        **VARIANT_OPTIONS[FUSE], "DATA.BATCH_SIZE": FUSE_BATCH})
+    g = gan_steps(cfg, 90, 2, FUSE_WARMUP, FUSE_TIMED, batch=FUSE_BATCH)
+    per_fwd = scan_launches(g.model)
+    want = dict(per_fwd, selective_scan_fused_bwd=per_fwd["selective_scan_fused"],
+                linear_recurrence_reverse=per_fwd["linear_recurrence"])
+    row = dict(batch=FUSE_BATCH, dtype="bfloat16", median_ms=g.median_ms, step_ms=g.step_ms,
+               x_real_time=FUSE_BATCH * cfg.DATA.SEGMENT / (g.median_ms / 1e3),
+               peak_memory_gb=g.peak_gb, launches_per_step=g.per_step, want=want,
+               finite=g.finite, changed=g.changed, tensors=g.tensors,
+               unchanged_first_grad=g.unchanged, first=g.values[0], last=g.values[-1])
+    print(f"{FUSE} GAN step, batch {FUSE_BATCH}, bf16: {FUSE_TIMED} steps after "
+          f"{FUSE_WARMUP}: median {g.median_ms:.2f} ms/step (CUDA events; min "
+          f"{min(g.step_ms):.2f}, max {max(g.step_ms):.2f}), peak memory {g.peak_gb:.2f} GB; "
+          f"launches per step {g.per_step} (derived {want}); finite {g.finite}; parameters "
+          f"changed {g.changed} of {g.tensors} tensors; unchanged, with the first step's "
+          f"max|grad| (AdamW eps {g.eps}): {g.unchanged}  [{smi}]")
+    if not g.finite or g.per_step != want or g.stuck:
+        raise AssertionError(f"{FUSE} step failed; unchanged with a gradient: {g.stuck}")
+    return row
+
+
 def variants_phase(smi):
     """The variants phase: each shipped stream-interaction config and each
     other generator option, kernels against plain with exact launches; the
-    SINGLE config through the CLI; the latent layout's gradient; and
-    USE_CHECKPOINT. Returns (report, the SINGLE training run's launches)."""
+    SINGLE config through the CLI; the latent layout's and FUSE_STREAMS's
+    gradients; the FUSE_STREAMS GAN step at batch 8; the flagship at batch
+    32; and USE_CHECKPOINT. Returns (report, the SINGLE training run's
+    launches)."""
     rows = []
     per_fwd = {}
     for name, yaml_name in VARIANT_YAMLS.items():
@@ -1764,6 +1803,9 @@ def variants_phase(smi):
             label, variant_config(CONFIG.name, amp=False, overrides=overrides),
             variant_config(CONFIG.name, amp=True, overrides=overrides), smi)
         rows.append(row)
+    rows.append(variant_forward(f"flagship at batch {WIDE_BATCH}", variant_config(
+        CONFIG.name, amp=False), variant_config(CONFIG.name, amp=True), smi,
+        batch=WIDE_BATCH)[0])
     print(f"fp32 generator gradient of the {LATENT} layout (the fused backward at D = 512 "
           f"in its bottleneck), kernels and plain scan vs the plain scan in fp64:")
     cfg32 = variant_config(CONFIG.name, amp=False, gan=True, overrides={
@@ -1776,7 +1818,15 @@ def variants_phase(smi):
     latent_grad = gradient_check(cfg32, dict(selective_scan_fused=f, selective_scan_fused_bwd=f,
                                              linear_recurrence=r, linear_recurrence_reverse=r),
                                  plain_to_witness=False)
+    print(f"fp32 generator gradient with {FUSE} (the shared mag decoder's scans, forward "
+          f"and backward, at 2B rows), kernels and plain scan vs the plain scan in fp64:")
+    cfg32 = variant_config(CONFIG.name, amp=False, gan=True, overrides={
+        **VARIANT_OPTIONS[FUSE], "MODEL.VSSM.DROP_PATH_RATE": 0.0})
+    f, r = per_fwd[FUSE]["selective_scan_fused"], per_fwd[FUSE]["linear_recurrence"]
+    fuse_grad = gradient_check(cfg32, dict(selective_scan_fused=f, selective_scan_fused_bwd=f,
+                                           linear_recurrence=r, linear_recurrence_reverse=r))
     return dict(forwards=rows, single_cli=cli_report, latent_grad=latent_grad,
+                fuse_streams_grad=fuse_grad, fuse_streams_step=fuse_streams_step(smi),
                 use_checkpoint=checkpoint_memory_check(smi)), single_launches
 
 
@@ -2018,11 +2068,12 @@ def gan_option_step(label, overrides):
                 last_metrics={k: float(v) for k, v in history[-1].items()})
 
 
-def gan_steps(cfg, seed0: int, n_batches: int, warmup: int, timed: int):
+def gan_steps(cfg, seed0: int, n_batches: int, warmup: int, timed: int,
+              batch: int = TRAIN_BATCH):
     """The GAN train step of ``cfg`` on the card from seeded weights:
     ``warmup`` steps, then ``timed`` steps by CUDA events with the scans'
-    launches counted over them; ``n_batches`` batches of synthetic speech
-    (seeds from ``seed0``) in turn. Returns a namespace with the models,
+    launches counted over them; ``n_batches`` batches of ``batch`` segments
+    of synthetic speech (seeds from ``seed0``) in turn. Returns a namespace with the models,
     ``run(i)`` (one more step on batch i), the step times, the
     metrics, the peak memory and the parameters left unchanged with their
     first step's gradient: a tensor may stay unchanged only if that
@@ -2031,8 +2082,7 @@ def gan_steps(cfg, seed0: int, n_batches: int, warmup: int, timed: int):
     gen_state = GenState(model, make_optimizer(cfg, 1000, model))
     disc_states = {n: DiscState(d, make_optimizer(cfg, 1000, d)) for n, d in discs.items()}
     step = make_train_step(cfg, model, discs)
-    batches = [train_batch(cfg, seeds=range(seed0 + TRAIN_BATCH * i,
-                                            seed0 + TRAIN_BATCH * (i + 1)))
+    batches = [train_batch(cfg, seeds=range(seed0 + batch * i, seed0 + batch * (i + 1)))
                for i in range(n_batches)]
     rng = torch.Generator(device="cuda").manual_seed(cfg.SEED)
     params = list(model.named_parameters()) + [
@@ -3376,69 +3426,6 @@ def vssm_phase(smi):
     return report
 
 
-# The bench phase's warm-up calls and timed iterations (median_window_dt runs
-# 3 windows of iters + 2·iters calls), cut from the bench's defaults (40/20,
-# 20/10, 30/20, 10/10, 10/20) to hold the phase near two minutes; widths and
-# batches are the bench's own.
-BENCH_INFERENCE = {"batch1": dict(warmup=10, iters=5), "stacked": dict(warmup=10, iters=5),
-                   "fullclip": dict(warmup=5, iters=3), "batched": dict(warmup=3, iters=2)}
-BENCH_TRAIN = dict(warmup=3, iters=2)
-BENCH_SCAN = dict(warmup=5, iters=10)
-BENCH_METRICS = ("rtf_reciprocal_48k_batch1", "rtf_reciprocal_48k_batch1_stacked",
-                 "rtf_reciprocal_48k_fullclip_device", "rtf_reciprocal_48k_batch32",
-                 "train_rt_factor_48k_MPD_batch8", "scan_fwd_hbm_roofline_pct",
-                 "scan_fwd_bwd_hbm_roofline_pct")
-# A device busy time above the timed wall by more than this share is no
-# reading. Busy and wall come from different calls, and the profiler
-# lengthens kernels a little: the device-bound batch-32 call read busy 2 %
-# above its wall (idle share -0.020; NVIDIA H100 80GB HBM3, 700 W).
-IDLE_NOISE = 0.05
-
-
-def numbers(tree):
-    """Every number in a nested dict / list of a metric line."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from numbers(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from numbers(v)
-    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
-        yield tree
-
-
-def bench_phase(smi):
-    """python -m vm_asr_tpu_torch.bench's stages at full width with cut
-    iterations: every line printed, each finite, with the card's name and
-    power limit, busy ms, idle share and peak memory, every share in
-    (0, 100]; the scans' launches over the phase."""
-    card = port_bench.Card.probe("cuda")
-    print(f"iterations: inference {BENCH_INFERENCE}, train {BENCH_TRAIN}, scan {BENCH_SCAN}")
-    zero_counts()
-    lines = port_bench.run(card, inference=BENCH_INFERENCE, train=BENCH_TRAIN, scan=BENCH_SCAN)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    got = [r["metric"] for r in lines]
-    if got != list(BENCH_METRICS):
-        raise AssertionError(f"bench lines {got} != {list(BENCH_METRICS)}")
-    smi_name, smi_power = (s.strip() for s in smi.split(","))
-    for r in lines:
-        bad = [x for x in numbers(r) if not np.isfinite(x)]
-        shares = [r[k] for k in r if k.startswith("mfu_pct_")] + (
-            [r["value"]] if r["metric"].endswith("_pct") else [])
-        if (bad or any(r[k] is None for k in ("value", "device_busy_ms", "idle_share",
-                                               "peak_memory_gb", "power_limit_w"))
-                or not all(0.0 < x <= 100.0 for x in shares)
-                or not -IDLE_NOISE < r["idle_share"] < 1.0
-                or r["device"] != smi_name or r["power_limit_w"] != float(smi_power.split()[0])):
-            raise AssertionError(f"bench line out of bounds: {json.dumps(r)}")
-    print(f"bench: {len(lines)} lines, launches over the phase {launches}  [{smi}]")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the bench's path never launched: {launches}")
-    return dict(lines=lines, launches=launches,
-                iters=dict(inference=BENCH_INFERENCE, train=BENCH_TRAIN, scan=BENCH_SCAN))
-
-
 TRAJECTORY_EPOCHS = 12
 TRAJECTORY_TIMEOUT_S = 900
 
@@ -3852,11 +3839,6 @@ def main() -> int:
     report["checks"] = checks_phase(smi)
     print(f"checks phase in {time.perf_counter() - t0:.1f} s")
 
-    t0 = phase("bench: python -m vm_asr_tpu_torch.bench's stages, flagship width, cut "
-               "iterations")
-    report["bench"] = bench_phase(smi)
-    print(f"bench phase in {time.perf_counter() - t0:.1f} s")
-
     t0 = phase("trajectory: python -m vm_asr_tpu_torch.trajectory [--gan], 12 epochs, fp32, "
                "against the JAX Trainer's recorded curves")
     report["trajectory"] = trajectory_phase(smi)
@@ -3970,7 +3952,6 @@ def main() -> int:
     for k in kernels:
         k["checks_launches"] = report["checks"]["launches"][k["name"]]
         k["dims24_launches_per_step"] = report["train"]["dims24"]["launches_per_step"][k["name"]]
-        k["bench_launches"] = report["bench"]["launches"][k["name"]]
         k["trajectory_launches"] = report["trajectory"]["launches"][k["name"]]
         k["vssm_forward_launches"] = vssm["kernel_launches"][k["name"]]
         k["vssm_gradient_launches"] = vssm["gradient"]["launches"][k["name"]]

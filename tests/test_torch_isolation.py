@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package (every
-module, the entry points cli, checks, bench and trajectory among them, and
+module, the entry points cli, checks and trajectory among them, and
 chip_smoke.py), and its entry points run on the card unless the caller asks
 for the CPU."""
 
@@ -28,8 +28,7 @@ for name in names:
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "vm_asr_tpu"))
-entry_points = {"vm_asr_tpu_torch.bench", "vm_asr_tpu_torch.trajectory", "vm_asr_tpu_torch.cli",
-                "vm_asr_tpu_torch.checks"}
+entry_points = {"vm_asr_tpu_torch.trajectory", "vm_asr_tpu_torch.cli", "vm_asr_tpu_torch.checks"}
 print(len(names), bad, sorted(entry_points - set(names)))
 sys.exit(1 if bad or len(names) < 20 or not entry_points <= set(names) else 0)
 """

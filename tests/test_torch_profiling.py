@@ -149,22 +149,25 @@ def _jax_generator(opts):
     return cfg, get_generator(cfg, "cpu"), JaxDual(scan_impl="ref", dtype=jnp.float32, **kw)
 
 
+@pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("head", ["v3", "v1"])
-def test_generator_matches_jax(head):
-    """The flagship generator's batch-1 forward (head v3, and v1 with its
-    transposed convs): the port's count equals the JAX package's."""
+def test_generator_matches_jax(head, batch):
+    """The flagship generator's forward at batch 1 and 2 (head v3, and v1
+    with its transposed convs): the port's count equals the JAX package's.
+    Batch 2 stands for the batched forwards of segment buckets 2-8, which
+    serve most of the serve cells' segments."""
     cfg, port, jm = _jax_generator(["MODEL.VSSM.OUTPUT", head])
     t = int(cfg.DATA.SEGMENT * cfg.DATA.TARGET_SR)
-    x, hf = jnp.zeros((1, 1, t)), jnp.array([171])
+    x, hf = jnp.zeros((batch, 1, t)), jnp.full((batch,), 171)
     if head == "v1":  # the JAX package's converter rejects the v1 head
         params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x, hf)["params"]
     else:  # the port's weights, which save tracing the JAX init
         params = state_dict_to_flax({k: v.numpy() for k, v in port.state_dict().items()},
                                     drop_phase_decoders=False)
     want = jax_matmul_flops(lambda p, x, hf: jm.apply({"params": p}, x, hf), params, x, hf)
-    wave = np.random.default_rng(0).standard_normal((1, 1, t)).astype(np.float32)
+    wave = np.random.default_rng(0).standard_normal((batch, 1, t)).astype(np.float32)
     with torch.no_grad():
-        got = matmul_flops(port, torch.from_numpy(wave), torch.tensor([171]))
+        got = matmul_flops(port, torch.from_numpy(wave), torch.full((batch,), 171))
     assert got == want
 
 
