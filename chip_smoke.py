@@ -25,7 +25,17 @@ raising on failure:
    also run on a grid capped to a few CTAs, so that their tiles arrive in
    another order, and must give the same bits again. One recurrence call
    must be one kernel on the device, launched once and right. The backward
-   is also timed with a cold L2.
+   is also timed with a cold L2. Then, in a process of its own, the
+   LayerNorm kernel (csrc/layer_norm.cu) against its plain version (torch's
+   route) at every shape of the LayerNorm censuses of a forward without a
+   gradient (the flagship generator at dims 16 and 24, VMamba-T v0 from the
+   classify cell's configuration), batch 1 and 8 (128 for the classifier),
+   bf16 (one ulp) and fp32 (1e-5), with the share that differs, bitwise on
+   two calls, with device ms beside the byte bound and torch's route's
+   (library_ms), which in bf16 it must not exceed, and the sums over a
+   forward's calls; then each census against the models' own calls at
+   batch 1 and 2, with 114, 114 and 35 launches a forward, every LayerNorm
+   on the device the kernel's under its exported names, none of torch's.
 3b. look-back under contention: a kernel built here (HOLD_SOURCE) holds 128
    of the card's 132 SMs for 200 ms while the fused forward and the
    recurrence (both directions) run at a main-path shape on another
@@ -57,9 +67,12 @@ raising on failure:
    dsp.istft bitwise torch.istft at the forward's spectra.
 7. profile: one batch-1 forward (a replay) under torch.profiler, and its
    device kernels against an eager forward's: the same names apart from
-   copies, busy times within 5 %.
+   copies, busy times within 5 %; its 114 LayerNorms all the kernel's, none
+   of torch's LayerNorm kernels.
 8. train: the flagship GAN train step (batch 4, bf16, MPD, AdamW), 3
-   warm-up and 10 timed steps on synthetic speech, with launch counts, then
+   warm-up and 10 timed steps on synthetic speech, with launch counts (no
+   LayerNorm kernel: autograd records the step; every GAN step checked
+   asserts it), then
    one profiled step by kernel (each wrapper's kernels by their exported
    names) and one by op and input shapes; then the dims-24 config's GAN step
    (configs/vm_asr_48k_16k_MPD_VSSM24.yaml, D = 48 at stage 0) at batch 4,
@@ -201,6 +214,8 @@ from vm_asr_tpu_torch.models import (
     SS2D,
     BackboneVSSM,
     DualStreamStackedMambaUNet,
+    LayerNorm,
+    build_classifier,
     get_discriminators,
     get_generator,
     get_vssm,
@@ -210,6 +225,8 @@ from vm_asr_tpu_torch.models import (
 from vm_asr_tpu_torch.models.ss2d import dt_bias_init_
 from vm_asr_tpu_torch.ops import (
     fused_chunk_states_plain,
+    layer_norm,
+    layer_norm_plain,
     linear_recurrence,
     linear_recurrence_plain,
     linear_recurrence_reverse,
@@ -224,6 +241,7 @@ from vm_asr_tpu_torch.ops import (
 )
 from vm_asr_tpu_torch.ops import lookback
 from vm_asr_tpu_torch.ops.build import SOURCES, build, ptxas_info
+from vm_asr_tpu_torch.ops.layer_norm import LAYER_NORM_KERNELS, layer_norm_plan
 from vm_asr_tpu_torch.ops.linear_recurrence import (
     LR_KERNELS,
     LR_REVERSE_KERNELS,
@@ -542,7 +560,7 @@ COUNTED = (selective_scan_fused, selective_scan_fused_bwd, linear_recurrence,
 
 
 def zero_counts():
-    for fn in COUNTED + (selective_scan_nstate,):
+    for fn in COUNTED + (selective_scan_nstate, layer_norm):
         fn.launches = 0
 
 
@@ -871,6 +889,241 @@ def nstate_process(smi):
     proc = subprocess.run([sys.executable, "-c", code, smi, str(out)], cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"the N-state phase's process exited {proc.returncode}")
+    return json.loads(out.read_text())
+
+
+# LayerNorm calls of one batch-1 forward, {(N, rows): calls}: the flagship
+# generator at dims 16 and 24 (a 512 × 512 image; N = 2 is the v3 head's
+# last out_norm) and VMamba-T v0 at 224² (one image). The LayerNorm phase
+# checks them against each model's calls, at batch 1 and the largest batch
+# each serves (LN_BATCHES: the bucket of 8, the classify cell's 128).
+LN_CALLS = {
+    "vmasr48k_d16": {(2, 262144): 2, (4, 262144): 2, (8, 65536): 8, (16, 16384): 12,
+                     (16, 65536): 2, (32, 4096): 18, (32, 16384): 6, (64, 1024): 18,
+                     (64, 4096): 10, (128, 256): 16, (128, 1024): 10, (256, 256): 10},
+    "vmasr48k_d24": {(2, 262144): 2, (6, 262144): 2, (12, 65536): 8, (24, 16384): 12,
+                     (24, 65536): 2, (48, 4096): 18, (48, 16384): 6, (96, 1024): 18,
+                     (96, 4096): 10, (192, 256): 16, (192, 1024): 10, (384, 256): 10},
+    "vssm_tiny": {(96, 3136): 3, (192, 3136): 2, (384, 784): 3, (192, 784): 2,
+                  (768, 196): 10, (384, 196): 9, (1536, 49): 3, (768, 49): 3},
+}
+LN_BATCHES = {"vmasr48k_d16": (1, 8), "vmasr48k_d24": (1, 8), "vssm_tiny": (1, 128)}
+VSSM_TINY_CONFIG = ROOT / "benchmark" / "configs" / "vssm_tiny.json"
+# LayerNorm kernel against its plain version (torch's route). Both take the
+# statistics and the affine in fp32 and round once; they sum in another
+# order (torch by Welford) and take rsqrt on other units, ~1e-7 of the
+# unit-variance output apart. fp32: rtol = atol = 1e-5 of that output, the
+# atol scaled by the row's own conditioning, 1 + |gamma|·|mean| / std (in
+# fp64): each rounds the mean by ~6e-8 of |mean|, and x − mean carries that
+# into the output over std. A row of 2 or 4 values may spread far less than
+# its mean; at 2 M rows of 4 (batch 8) such rows put the two 9e-5 apart
+# on an NVIDIA H100 80GB HBM3. bf16: the two round fp32 values that close,
+# so at most one bf16 ulp apart, plus the fp32 bar where the output nears 0
+# (an output of 1e-5 has ulps of 6e-8, finer than the fp32 values' gap).
+LN_BF16_ULPS = 1
+LN_FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+LN_EPS = 1e-5
+LN_NAMES = frozenset(LAYER_NORM_KERNELS["norm"])
+# torch's LayerNorm kernels, which the forward without a gradient no longer runs.
+TORCH_LN_KERNELS = ("vectorized_layer_norm_kernel", "RowwiseMomentsCUDAKernel",
+                    "LayerNormForwardCUDAKernel")
+
+
+def torch_ln_events(events) -> int:
+    return sum(any(k in name for k in TORCH_LN_KERNELS) for name, _, _ in events)
+
+
+def ln_events(events) -> int:
+    return sum(name in LN_NAMES for name, _, _ in events)
+
+
+def ln_models():
+    """{label: (bf16 model, inputs of a batch)} of the three censuses: the
+    flagship generator at dims 16 and 24 (a segment of speech-like audio)
+    and VMamba-T v0 (the classify cell's configuration, seeded weights)."""
+    d24 = load_config(str(ROOT / "configs" / DIMS24_YAML), [
+        "AMP_ENABLE", "True", "OUTPUT", str(OUT / "logs"), "TAG", "16000_48000"])
+    tiny = default_config()
+    tiny.merge_from_dict(json.loads(VSSM_TINY_CONFIG.read_text())["program"])
+    tiny.OUTPUT = str(OUT / "logs")
+    tiny.freeze()
+    models = {}
+    for label, cfg in (("vmasr48k_d16", flagship_config(amp=True)), ("vmasr48k_d24", d24)):
+        seg = int(cfg.DATA.SEGMENT * cfg.DATA.TARGET_SR)
+        wave = torch.from_numpy(speech_like(seg / 48000, 48000, seed=3)).cuda()
+        models[label] = (get_generator(cfg, "cuda"), lambda b, wave=wave: (
+            wave.expand(b, 1, -1).contiguous(), torch.full((b,), 171, device="cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    image = torch.randn(1, VSSM_IMAGE, VSSM_IMAGE, 3, device="cuda", generator=gen)
+    models["vssm_tiny"] = (build_classifier(tiny, "cuda", seed=0),
+                           lambda b: (image.expand(b, -1, -1, -1).contiguous(),))
+    return models
+
+
+def ln_census(model, inputs):
+    """One forward without a gradient: its LayerNorm calls {(N, rows):
+    calls}, the kernel's launches, and its device events (profiled)."""
+    seen = Counter()
+    hooks = [m.register_forward_pre_hook(lambda mod, inp: seen.update(
+        [(inp[0].shape[-1], inp[0].numel() // inp[0].shape[-1])]))
+        for m in model.modules() if isinstance(m, LayerNorm)]
+    before = layer_norm.launches
+    with torch.inference_mode():
+        model(*inputs)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    launches = layer_norm.launches - before
+    with torch.inference_mode():
+        events = device_kernels(lambda: model(*inputs))
+    return dict(seen), launches, events
+
+
+def bf16_ulp(t):
+    """The spacing of bf16 values at |t|, elementwise (t bf16), in fp32."""
+    mag = t.abs()
+    return (mag.view(torch.int16) + 1).view(torch.bfloat16).float() - mag.float()
+
+
+def ln_inputs(rows, n, dtype, gen):
+    """Rows of mean ~N(0, 16) and scale 3, and an affine ~N(0, 1), on the card."""
+    x = torch.randn(rows, n, device="cuda", generator=gen) * 3 \
+        + torch.randn(rows, 1, device="cuda", generator=gen) * 4
+    return (x.to(dtype), torch.randn(n, device="cuda", generator=gen),
+            torch.randn(n, device="cuda", generator=gen))
+
+
+def check_layer_norm(rows, n, dtype, gen):
+    """The kernel against its plain version at one (rows, N), elementwise:
+    in fp32 within LN_FP32_TOL (its atol scaled by the row's conditioning),
+    in bf16 within one ulp and that atol; the share of elements that differ;
+    a second call bitwise the first."""
+    x, w, b = ln_inputs(rows, n, dtype, gen)
+    y = layer_norm(x, w, b, LN_EPS, dtype)
+    check_same(f"layer_norm {(rows, n)} {dtype}", (y,), (layer_norm(x, w, b, LN_EPS, dtype),))
+    p = layer_norm_plain(x, w, b, LN_EPS, dtype)
+    xd = x.double()
+    mean, std = xd.mean(-1, keepdim=True), xd.std(-1, correction=0, keepdim=True)
+    atol = LN_FP32_TOL["atol"] * (1 + w.double().abs() * mean.abs() / std)
+    gap = (y.double() - p.double()).abs()
+    if dtype == torch.bfloat16:
+        bar = LN_BF16_ULPS * bf16_ulp(p).double() + atol
+        away = p.abs() >= 2.0 ** -6  # ulps there at least 2^-13, far above fp32's gap
+        err = (gap / bf16_ulp(p).double())[away].max().item()
+    else:
+        bar = atol + LN_FP32_TOL["rtol"] * p.double().abs()
+        err = gap.max().item()
+    of_bar, differ = (gap / bar).max().item(), (gap > 0).double().mean().item()
+    del xd, mean, std, atol, gap, bar
+    if not of_bar <= 1:
+        raise AssertionError(f"layer_norm {(rows, n)} {dtype}: kernel vs plain at {of_bar:.3g} "
+                             f"of the bar; {'ulps (|plain| >= 2^-6)' if dtype == torch.bfloat16 else 'max |diff|'} {err:.3g}")
+    size = x.element_size()
+    nbytes = 2 * rows * n * size + 2 * n * 4
+    return dict(kernel="layer_norm", shape=[rows, n], dtype=str(dtype),
+                plan=list(layer_norm_plan(rows, n, size)), max_err=err, of_bar=of_bar,
+                differ_share=differ,
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def ln_device_ms(rows_list, dtype, gen, reps: int = 10, tries: int = 3):
+    """Device ms a call of the kernel and of torch's route (the plain
+    version, `library_ms`) at each (rows, N) of ``rows_list``: kernels only,
+    no gaps, from one profiled pass over the shapes, each route's calls
+    between spin kernels; None where a capture dropped events."""
+    args = [ln_inputs(r, n, dtype, gen) for r, n in rows_list]
+
+    def run():
+        for x, w, b in args:
+            torch.cuda._sleep(100)
+            for _ in range(reps):
+                layer_norm(x, w, b, LN_EPS, dtype)
+            torch.cuda._sleep(100)
+            for _ in range(reps):
+                layer_norm_plain(x, w, b, LN_EPS, dtype)
+
+    for _ in range(tries):
+        segs, cur = [], None
+        for name, s_, e_ in sorted(device_kernels(run), key=lambda e: e[1]):
+            if "spin_kernel" in name:
+                cur = []
+                segs.append(cur)
+            elif cur is not None:
+                cur.append((name, s_, e_))
+        if len(segs) == 2 * len(args) and all(
+                len(k) == reps and all(n_ in LN_NAMES for n_, _, _ in k) for k in segs[::2]):
+            return [(sum(e_ - s_ for _, s_, e_ in k) / reps / 1e3,
+                     sum(e_ - s_ for _, s_, e_ in lib) / reps / 1e3)
+                    for k, lib in zip(segs[::2], segs[1::2])]
+    return [(None, None)] * len(args)
+
+
+def layer_norm_phase(smi):
+    """The LayerNorm kernel on the main path: against its plain version at
+    every census shape, batch 1 and the largest, bf16 and fp32, with device
+    ms beside the byte bound and torch's route (library_ms), summed over a
+    forward's calls; then each census against the models' own calls, 114
+    launches a generator forward and 35 a classifier forward at batch 1 and
+    2, the forward's device events all the kernel's and none of torch's
+    LayerNorm. In a process of its own (layer_norm_process)."""
+    report = dict(checks=[], per_forward={}, census={})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for label, calls in LN_CALLS.items():
+        for batch in LN_BATCHES[label]:
+            shapes = [(r * batch, n) for n, r in calls]
+            for dtype in (torch.bfloat16, torch.float32):
+                rows = [check_layer_norm(r, n, dtype, gen) for r, n in shapes]
+                for c, (ms, lib) in zip(rows, ln_device_ms(shapes, dtype, gen)):
+                    c.update(config=label, batch=batch, device_ms=ms, library_ms=lib,
+                             plain_ms=lib)
+                    print(f"layer_norm {label} batch {batch} {tuple(c['shape'])} "
+                          f"{c['dtype'][6:]}: {c['of_bar']:.3f} of the bar, "
+                          f"{'ulps' if dtype == torch.bfloat16 else 'max|err|'} {c['max_err']:.3g},"
+                          f" {100 * c['differ_share']:.2f} % differ; device {fmt_ms(ms)}, torch's "
+                          f"route {fmt_ms(lib)}, bound {c['bound_ms']:.4f} ms; plan {c['plan']}")
+                    # The census runs bf16: there the kernel must not be slower.
+                    if dtype == torch.bfloat16 and ms is not None and not ms <= lib:
+                        raise AssertionError(f"layer_norm {c['shape']} {dtype}: kernel {ms} ms "
+                                             f"slower than torch's route {lib} ms")
+                report["checks"] += rows
+                per = {key: None if any(c[key] is None for c in rows) else sum(
+                    calls[(c["shape"][1], c["shape"][0] // batch)] * c[key] for c in rows)
+                    for key in ("device_ms", "library_ms", "bound_ms")}
+                report["per_forward"][f"{label}/{batch}/{str(dtype)[6:]}"] = per
+                print(f"layer_norm per {label} forward, batch {batch}, {str(dtype)[6:]}: device "
+                      f"{fmt_ms(per['device_ms'])}, torch's route {fmt_ms(per['library_ms'])}, "
+                      f"bound {per['bound_ms']:.4f} ms  [{smi}]")
+    for label, (model, inputs) in ln_models().items():
+        want_launches = sum(LN_CALLS[label].values())
+        for batch in (1, 2):
+            seen, launches, events = ln_census(model, inputs(batch))
+            want = {(n, r * batch): c for (n, r), c in LN_CALLS[label].items()}
+            row = dict(batch=batch, launches=launches, device_ln_calls=ln_events(events),
+                       torch_ln_events=torch_ln_events(events), device_events=len(events))
+            print(f"{label} batch {batch}: {launches} LayerNorm launches, on the device "
+                  f"{row['device_ln_calls']} kernel calls and {row['torch_ln_events']} of "
+                  f"torch's LayerNorm kernels ({len(events)} device events); calls by (N, "
+                  f"rows) {'as the census' if seen == want else seen}")
+            odd = sorted({n for n, _, _ in events if "layer_norm" in n and n not in LN_NAMES})
+            if seen != want or launches != want_launches or row["torch_ln_events"] or (
+                    events and row["device_ln_calls"] != want_launches) or odd:
+                raise AssertionError(f"{label} batch {batch}: {row}; unknown kernel names {odd}")
+            report["census"][f"{label}/{batch}"] = row
+        del model
+    return report
+
+
+def layer_norm_process(smi):
+    """layer_norm_phase in a process of its own, which returns its report:
+    it profiles after running the classifier, after which, as after the
+    N-state phase's checks (nstate_process), the profiler's captures may
+    come back empty for the rest of a process."""
+    out = OUT / "layer_norm.json"
+    code = ("import json, sys, chip_smoke as c; "
+            "open(sys.argv[2], 'w').write(json.dumps(c.layer_norm_phase(sys.argv[1])))")
+    proc = subprocess.run([sys.executable, "-c", code, smi, str(out)], cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the LayerNorm phase's process exited {proc.returncode}")
     return json.loads(out.read_text())
 
 
@@ -2113,6 +2366,9 @@ def gan_steps(cfg, seed0: int, n_batches: int, warmup: int, timed: int,
         marks.append((start, end))
     torch.cuda.synchronize()
     launches = read_counts()
+    if layer_norm.launches:  # autograd records the step's LayerNorms: torch's route
+        raise AssertionError(f"{layer_norm.launches} LayerNorm kernel launches in "
+                             f"{timed} GAN train steps")
     step_ms = [s_.elapsed_time(e_) for s_, e_ in marks]
     values = [{k: float(v) for k, v in m.items()} for m in history]
     changed = {n for n, t in params if not torch.equal(before[n], t)}
@@ -2639,19 +2895,25 @@ def graphed_forward_check(inferencer):
     return rows
 
 
+SPINS = 8  # kernels that open each profiled call of replay_vs_eager
+
+
 def replay_vs_eager(inferencer, x, hf, tries: int = 3):
     """A profiled replay's device kernels against a profiled eager forward's
     on the same inputs: the same kernels by name, apart from the replay's
     copies (its inputs in, its output out), and busy times within 5 %, so
     that the benchmark's device-trace metrics see the graph's kernels.
     Copies and memsets (Memcpy, Memset: a graph's memset reads "Unknown")
-    are left out of the names. Each profiled call starts with a short spin
-    kernel, left out too: the profiler may drop a capture's first device
-    event. A pair whose names differ is taken again (at most ``tries``
-    pairs)."""
+    are left out of the names. Each profiled call starts with SPINS short
+    spin kernels and a synchronize, left out too: the profiler may drop a
+    capture's first device events (up to four, on an H100, in a process
+    that had profiled the earlier phases). A pair whose names differ is
+    taken again (at most ``tries`` pairs)."""
     def profiled(fn):
         def call():
-            torch.cuda._sleep(1000)
+            for _ in range(SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             return fn()
         return [e for e in device_kernels(call) if "spin_kernel" not in e[0]]
 
@@ -2674,6 +2936,12 @@ def replay_vs_eager(inferencer, x, hf, tries: int = 3):
               f"replay {dict(extra)}, only in the eager forward {dict(missing)}")
         if not missing and not extra:
             break
+        seqs = [[n for n, _, _ in ev if not n.startswith(("Memcpy", "Memset"))]
+                for ev in (replay_events, eager_events)]
+        at = next((i for i, (a, b) in enumerate(zip(*seqs)) if a != b), min(map(len, seqs)))
+        for side, seq in zip(("replay", "eager"), seqs):
+            print(f"  {side} from its kernel {at - 2} of {len(seq)}: "
+                  f"{[n[:70] for n in seq[max(at - 2, 0):at + 3]]}")
     if missing or extra or not abs(busy[0] - busy[1]) <= 0.05 * busy[1]:
         raise AssertionError(f"replay against eager: {row}")
     return row
@@ -3594,6 +3862,7 @@ def main() -> int:
               f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
               f"{c['bytes'] / 1e6:.2f} MB)")
     report["kernel_checks"] = checks
+    report["layer_norm"] = layer_norm_process(smi)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("look-back under contention: the one-launch scans while another kernel holds "
@@ -3721,13 +3990,18 @@ def main() -> int:
     for name, s_, e_ in events:
         by_name[name] += (e_ - s_) / 1e3
     scan_ms = sum(by_wrapper(events)[0].values())
+    ln_ms = sum(e_ - s_ for name, s_, e_ in events if name in LN_NAMES) / 1e3
+    if torch_ln_events(events) or (events and ln_events(events) != 114):
+        raise AssertionError(f"profiled forward: {ln_events(events)} LayerNorm kernel calls "
+                             f"(want 114), {torch_ln_events(events)} of torch's LayerNorm")
     prof = dict(wall_ms=wall_ms, device_busy_ms=busy if events else None,
-                device_events=len(events), scan_kernels_ms=scan_ms,
+                device_events=len(events), scan_kernels_ms=scan_ms, layer_norm_ms=ln_ms,
                 idle_share=(1 - busy / wall_ms) if events else None,
                 top=[(n, t) for n, t in by_name.most_common(8)])
     idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
     print(f"forward: wall {wall_ms:.2f} ms, device busy {fmt_ms(prof['device_busy_ms'])} "
-          f"in {len(events)} device events, scan kernels {scan_ms:.3f} ms, idle share {idle}")
+          f"in {len(events)} device events, scan kernels {scan_ms:.3f} ms, LayerNorm kernel "
+          f"{ln_ms:.3f} ms in {ln_events(events)} calls (none of torch's), idle share {idle}")
     for n, t in prof["top"]:
         print(f"  {t:8.3f} ms  {n[:100]}")
     report["profile"] = prof

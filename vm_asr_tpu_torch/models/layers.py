@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.layer_norm import kernel_route, layer_norm, layer_norm_plain
 from ..parallel.context import rand_rows
 
 # flax truncated_normal(stddev=0.02, lower=-2, upper=2): stddev is that of the
@@ -153,7 +154,12 @@ class DepthwiseConv2d(nn.Conv2d):
 
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm(dtype=compute_dtype)`` with torch's eps 1e-5:
-    float32 statistics and affine, output in ``compute_dtype``."""
+    float32 statistics and affine, output in ``compute_dtype``.
+
+    A call that autograd records nothing of on the card (the serving
+    forward, the classifier, evaluation) takes the kernel, one launch
+    (ops/layer_norm.py); the others take torch's route, its plain version,
+    and torch's backward."""
 
     def __init__(self, dim: int, *, compute_dtype: torch.dtype = torch.float32):
         super().__init__(dim, eps=1e-5)
@@ -164,8 +170,9 @@ class LayerNorm(nn.LayerNorm):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
-        return y.to(self.compute_dtype)
+        if kernel_route(x, self.weight, self.bias, self.compute_dtype):
+            return layer_norm(x, self.weight, self.bias, self.eps, self.compute_dtype)
+        return layer_norm_plain(x, self.weight, self.bias, self.eps, self.compute_dtype)
 
 
 class DropPath(nn.Module):

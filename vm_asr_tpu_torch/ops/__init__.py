@@ -1,8 +1,10 @@
 """Selective-scan ops: plain-torch reference, CUDA kernel wrappers (autograd
 Functions whose backward is a kernel too), routing, and the cross-scan
-layout ops."""
+layout ops; and the LayerNorm kernel's wrapper for the forward without a
+gradient."""
 
 from .cross_scan import cross_merge, cross_scan
+from .layer_norm import layer_norm, layer_norm_plain
 from .linear_recurrence import (
     linear_recurrence,
     linear_recurrence_plain,
@@ -25,6 +27,8 @@ from .selective_scan_ref import linear_recurrence_ref, selective_scan_ref, softp
 __all__ = [
     "cross_merge",
     "cross_scan",
+    "layer_norm",
+    "layer_norm_plain",
     "fused_chunk_states_plain",
     "linear_recurrence",
     "linear_recurrence_plain",
