@@ -178,7 +178,12 @@ raising on failure:
    its exported name; bitwise equal on two calls and in a CUDA graph's
    replay; device time beside its byte bound and its exp bound, summed over
    a forward's 15 calls. In a process of its own (nstate_process).
-18. the script's seconds, the kernels line, the card line, and the result line.
+18. jamba: Jamba2-3B's scan calls, (1, L, 5120) at K = 1 for L = 1024,
+   4096 and 16384, against the plain version; the model at its published
+   sizes: 3 029 337 472 parameters, 26 N-state launches and no recurrence
+   a forward, and Scorer.score's graphed forward at 4096 and 16384 tokens
+   profiled (jamba_phase, in a process of its own).
+19. the script's seconds, the kernels line, the card line, and the result line.
 
 Per-shape numbers also go to chiprun_out/chip_smoke/report.json.
 """
@@ -216,6 +221,7 @@ from vm_asr_tpu_torch.models import (
     DualStreamStackedMambaUNet,
     LayerNorm,
     build_classifier,
+    build_language_model,
     get_discriminators,
     get_generator,
     get_vssm,
@@ -259,6 +265,7 @@ from vm_asr_tpu_torch.train import (
     DiscState,
     GenState,
     Inferencer,
+    Scorer,
     make_optimizer,
     make_train_step,
     segment_bucket_counts,
@@ -762,40 +769,41 @@ def check_lr_reverse(rows, l, d, gen):
                 bound_ms=bms, bound_by=by)
 
 
-def nstate_inputs(batch, l, kd, dtype, gen):
-    """The N-state kernel's inputs: u, Δ, B and C as the fused forward's
-    checks draw them, dt_bias as the model initialises it, and A = −exp of
-    log(1..16) moved by a seeded N(0, 0.3²), a learned-looking decay set."""
+def nstate_inputs(batch, l, kd, dtype, gen, k=K):
+    """The N-state kernel's inputs at ``k`` directions: u, Δ, B and C as the
+    fused forward's checks draw them, dt_bias as the model initialises it,
+    and A = −exp of log(1..16) moved by a seeded N(0, 0.3²), a
+    learned-looking decay set."""
     g = torch.Generator(device="cuda").manual_seed(batch * 1_000_003 + l * 1009 + kd + 7)
     _, bias, dsk = init_ranges(kd, gen)
     u = torch.randn(batch, l, kd, device="cuda", generator=g).to(dtype)
     dts = (0.5 * torch.randn(batch, l, kd, device="cuda", generator=g)).to(dtype)
-    bs = torch.randn(batch, l, K, NSTATE_N, device="cuda", generator=g).to(dtype)
-    cs = torch.randn(batch, l, K, NSTATE_N, device="cuda", generator=g).to(dtype)
+    bs = torch.randn(batch, l, k, NSTATE_N, device="cuda", generator=g).to(dtype)
+    cs = torch.randn(batch, l, k, NSTATE_N, device="cuda", generator=g).to(dtype)
     logs = torch.arange(1, NSTATE_N + 1, device="cuda").log().expand(kd, NSTATE_N)
     a = -torch.exp(logs + 0.3 * torch.randn(kd, NSTATE_N, device="cuda", generator=g))
-    return (u, dts, bs, cs, a, bias, dsk, K)
+    return (u, dts, bs, cs, a, bias, dsk, k)
 
 
-def profile_nstate(batch, l, kd, dtype, gen):
+def profile_nstate(batch, l, kd, dtype, gen, k=K):
     """One N-state call is one kernel under the module's exported name, and
     its device time by torch.profiler: (empty captures taken again, device
     ms, passes). Every shape is profiled before any is checked: on the card
     the profiler's captures came back empty for the rest of the process
     after the batch-128 check of the first stage (its plain version and
     timing)."""
-    args = nstate_inputs(batch, l, kd, dtype, gen)
+    args = nstate_inputs(batch, l, kd, dtype, gen, k)
     fn = lambda: selective_scan_nstate(*args)  # noqa: E731
     empty = one_kernel(f"nstate {(batch, l, kd)} {dtype}", fn, NSTATE_KERNELS,
                        selective_scan_nstate, lambda out: None)
     return (empty, *device_split(fn, NSTATE_KERNELS))
 
 
-def check_nstate(batch, l, kd, dtype, gen):
+def check_nstate(batch, l, kd, dtype, gen, k=K):
     """The N-state kernel's y against its plain version (run on 16 rows at a
     time, to hold the batch-128 check's memory to a few GB); a second call
     bitwise the first; times beside the byte and exp bounds."""
-    args = nstate_inputs(batch, l, kd, dtype, gen)
+    args = nstate_inputs(batch, l, kd, dtype, gen, k)
     name = f"nstate {(batch, l, kd)} {dtype}"
     fn = lambda: selective_scan_nstate(*args)  # noqa: E731
 
@@ -809,10 +817,10 @@ def check_nstate(batch, l, kd, dtype, gen):
     err = check_close(name, y, plain(), tol)
     size = y.element_size()
     # u, dts read and y written; B, C read; A, bias, D_skip read.
-    nbytes = (3 * batch * l * kd + 2 * batch * l * K * NSTATE_N) * size \
+    nbytes = (3 * batch * l * kd + 2 * batch * l * k * NSTATE_N) * size \
         + (kd * NSTATE_N + 2 * kd) * 4
     return dict(kernel="selective_scan_nstate", shape=[batch, l, kd], dtype=str(dtype),
-                tile=list(nstate_tile_layout(batch, kd, K, NSTATE_N, size)),
+                tile=list(nstate_tile_layout(batch, kd, k, NSTATE_N, size)),
                 max_abs_err=err, tol=tol, bytes=nbytes, ms=cuda_ms(fn),
                 plain_ms=cuda_ms(plain, reps=3, per=1), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 exp_bound_ms=batch * l * kd * NSTATE_N / SFU_EXP_PER_S * 1e3)
@@ -889,6 +897,99 @@ def nstate_process(smi):
     proc = subprocess.run([sys.executable, "-c", code, smi, str(out)], cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"the N-state phase's process exited {proc.returncode}")
+    return json.loads(out.read_text())
+
+
+JAMBA_CONFIG = ROOT / "benchmark" / "configs" / "jamba2_3b.json"
+# Jamba2-3B's scan calls, (1, L, 5120) at K = 1: the score cell's shortest,
+# median and longest buckets.
+JAMBA_SCAN_LENGTHS = (1024, 4096, 16384)
+JAMBA_MAMBA_LAYERS = 26
+
+
+def jamba_config():
+    cfg = default_config()
+    cfg.merge_from_dict(json.loads(JAMBA_CONFIG.read_text())["program"])
+    return cfg.freeze()
+
+
+def jamba_phase(smi):
+    """Jamba2-3B (benchmark/configs/jamba2_3b.json). The N-state
+    kernel at its Mamba layers' calls, (1, L, 5120) at K = 1 direction, bf16
+    and at L = 4096 fp32, against its plain version (one kernel per call,
+    bitwise on two calls, device ms beside the byte and exp bounds); then
+    the model at its published sizes from a seeded init (bf16): an eager
+    forward at 1024 tokens launches 26 N-state kernels and no recurrence,
+    and ``Scorer.score`` at 4096 and 16384 tokens, its graph's replay
+    profiled (26 N-state kernels on the device, their device ms, busy ms,
+    the kernels by name) with the peak memory."""
+    gen = torch.Generator().manual_seed(22)
+    shapes = [(1, l, 5120, torch.bfloat16) for l in JAMBA_SCAN_LENGTHS]
+    shapes.append((1, 4096, 5120, torch.float32))
+    profiled = [profile_nstate(*shape, gen, k=1) for shape in shapes]
+    scans = []
+    for shape, (empty, dev, passes) in zip(shapes, profiled):
+        c = dict(check_nstate(*shape, gen, k=1), empty_captures=empty, device_ms=dev)
+        scans.append(c)
+        torch.cuda.empty_cache()
+        print(f"{c['kernel']} {tuple(c['shape'])} K=1 {c['dtype'][6:]} tile {tuple(c['tile'])}: "
+              f"max|err| {c['max_abs_err']:.3e} (tol {c['tol']}) kernel {c['ms']:.4f} ms (device "
+              f"{fmt_ms(c['device_ms'])}); bitwise repeatable; one kernel per call; plain "
+              f"{c['plain_ms']:.3f} ms; bounds: bytes {c['bound_ms']:.4f} ms, exp "
+              f"{c['exp_bound_ms']:.4f} ms", flush=True)
+    cfg = jamba_config()
+    model = build_language_model(cfg, "cuda")
+    params = sum(p.numel() for p in model.parameters())
+    ids = torch.randint(cfg.MODEL.JAMBA.VOCAB_SIZE, (16384,), generator=gen)
+    before = (selective_scan_nstate.launches, linear_recurrence.launches)
+    with torch.inference_mode():
+        model(ids[None, :1024].cuda())
+    torch.cuda.synchronize()
+    launches = (selective_scan_nstate.launches - before[0], linear_recurrence.launches - before[1])
+    print(f"Jamba2-3B: {params} parameters; an eager forward at 1024 tokens launched "
+          f"{launches[0]} N-state kernels and {launches[1]} recurrences")
+    if params != 3_029_337_472 or launches != (JAMBA_MAMBA_LAYERS, 0):
+        raise AssertionError(f"Jamba2-3B: {params} parameters, launches {launches}")
+    scorer = Scorer(cfg, model, device="cuda")
+    forwards = {}
+    nstate_names = set(NSTATE_KERNELS["scan"])
+    for tokens in JAMBA_SCAN_LENGTHS[1:]:
+        doc = ids[:tokens]
+        torch.cuda.reset_peak_memory_stats()
+        fn = lambda doc=doc: scorer.score(doc)  # noqa: E731
+        out = fn()
+        if out.logprobs.shape != (tokens - 1,) or not torch.isfinite(out.logprobs).all():
+            raise AssertionError(f"Jamba2-3B at {tokens} tokens: {out.logprobs.shape}")
+        wall = cuda_ms(fn, reps=3, per=2)
+        events = device_kernels(fn)
+        calls = [e for e in events if e[0] in nstate_names]
+        if len(calls) != JAMBA_MAMBA_LAYERS:
+            raise AssertionError(f"{len(calls)} N-state kernels on the device in a replay")
+        by_name = Counter()
+        for name, s_, e_ in events:
+            by_name[name[:90]] += (e_ - s_) / 1e3
+        forwards[tokens] = dict(
+            wall_ms=wall, busy_ms=busy_us(events) / 1e3,
+            nstate_ms=sum(e_ - s_ for _, s_, e_ in calls) / 1e3,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            top=[[n, ms] for n, ms in by_name.most_common(12)])
+        f = forwards[tokens]
+        print(f"Scorer.score at {tokens} tokens: {f['wall_ms']:.2f} ms a request, busy "
+              f"{f['busy_ms']:.2f} ms, {JAMBA_MAMBA_LAYERS} N-state kernels {f['nstate_ms']:.3f} "
+              f"ms, peak {f['peak_gb']:.2f} GB  [{smi}]")
+        for n, ms in f["top"]:
+            print(f"  {ms:9.3f} ms  {n}")
+    return {"scans": scans, "parameters": params, "launches": launches, "forwards": forwards}
+
+
+def jamba_process(smi):
+    """The Jamba phase in a process of its own, as the N-state phase's."""
+    out = OUT / "jamba.json"
+    code = ("import json, sys, chip_smoke as c; "
+            "open(sys.argv[2], 'w').write(json.dumps(c.jamba_phase(sys.argv[1])))")
+    proc = subprocess.run([sys.executable, "-c", code, smi, str(out)], cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the Jamba phase's process exited {proc.returncode}")
     return json.loads(out.read_text())
 
 
@@ -4121,6 +4222,10 @@ def main() -> int:
     t0 = phase("N-state scan: the d_state-16 kernel at the classifier's shapes, batch 8 and 128")
     report["nstate"] = nstate_process(smi)
     print(f"N-state scan checked in {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("jamba: Jamba2-3B's scans at K = 1, its forward's launches, Scorer.score")
+    report["jamba"] = jamba_process(smi)
+    print(f"Jamba2-3B checked in {time.perf_counter() - t0:.1f} s")
 
     def per_train_step(name, calls, dtype, batch=TRAIN_BATCH):
         """Sums over one train step's calls (batch 4), or one served

@@ -33,11 +33,13 @@ CONFIGS = sorted(p.name for p in (ROOT / "configs").glob("*.yaml"))
 def test_config_matches_jax(name):
     """The port's copy of the config schema parses every shipped config to
     the same tree as the JAX package's, but for the VMamba classifier's
-    MODEL.NUM_CLASSES and DATA.IMG_SIZE, which the JAX package has not and
-    no VM-ASR path reads (tests/test_torch_vssm_classifier.py)."""
+    MODEL.NUM_CLASSES and DATA.IMG_SIZE, and the Jamba language model's
+    MODEL.JAMBA, which the JAX package has not and no VM-ASR path reads
+    (tests/test_torch_vssm_classifier.py, tests/test_torch_jamba.py)."""
     opts = ["DATA.BATCH_SIZE", "3", "MODEL.VSSM.DEPTHS", "[1, 1, 1, 1]"]
     got = load_config(str(ROOT / "configs" / name), opts).to_dict()
     assert got["MODEL"].pop("NUM_CLASSES") == 1000 and got["DATA"].pop("IMG_SIZE") == 224
+    assert got["MODEL"].pop("JAMBA") == default_config().MODEL.JAMBA.to_dict()
     assert got == jax_load_config(str(ROOT / "configs" / name), opts).to_dict()
 
 

@@ -264,6 +264,28 @@ def default_config() -> CfgNode:
     # (bwd ≤6.5e-4 rel at L=16384 — ~50× inside the reference's own bf16
     # tolerance). On: bit-faithful reference numerics at the scan boundary.
     c.MODEL.VSSM.SCAN_FP32_IO = False
+    # The Jamba language model (MODEL.TYPE "jamba", models/factory.py:
+    # build_language_model): the keys of its published config.json, at
+    # AI21-Jamba2-3B's values; no VM-ASR path reads them. A layer i is
+    # attention where i % ATTN_LAYER_PERIOD == ATTN_LAYER_OFFSET, else a
+    # Mamba-1 mixer; every layer has a dense SwiGLU MLP.
+    c.MODEL.JAMBA = CfgNode()
+    c.MODEL.JAMBA.HIDDEN_SIZE = 2560
+    c.MODEL.JAMBA.NUM_HIDDEN_LAYERS = 28
+    c.MODEL.JAMBA.NUM_ATTENTION_HEADS = 20
+    c.MODEL.JAMBA.NUM_KEY_VALUE_HEADS = 1
+    c.MODEL.JAMBA.INTERMEDIATE_SIZE = 8192
+    c.MODEL.JAMBA.VOCAB_SIZE = 65536
+    c.MODEL.JAMBA.ATTN_LAYER_PERIOD = 14
+    c.MODEL.JAMBA.ATTN_LAYER_OFFSET = 7
+    c.MODEL.JAMBA.MAMBA_D_STATE = 16
+    c.MODEL.JAMBA.MAMBA_D_CONV = 4
+    c.MODEL.JAMBA.MAMBA_EXPAND = 2
+    c.MODEL.JAMBA.MAMBA_DT_RANK = 160
+    c.MODEL.JAMBA.MAMBA_CONV_BIAS = True
+    c.MODEL.JAMBA.MAMBA_PROJ_BIAS = False
+    c.MODEL.JAMBA.RMS_NORM_EPS = 1e-6
+    c.MODEL.JAMBA.TIE_WORD_EMBEDDINGS = True
 
     # -- training (reference config.py:126-192) -------------------------------
     c.TRAIN = CfgNode()

@@ -1,6 +1,7 @@
 """Model factory: config → generator and discriminators (port of
-vm_asr_tpu/models/factory.py), and config → the VMamba classifier
-(MODEL.TYPE "vssm")."""
+vm_asr_tpu/models/factory.py), config → the VMamba classifier
+(MODEL.TYPE "vssm"), and config → the Jamba language model (MODEL.TYPE
+"jamba")."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from .discriminator import (
     MultiScaleDiscriminator,
     StackedMultiPeriodDiscriminator,
 )
+from .jamba import JambaLM
 from .layers import init_parameters
 from .unet import (
     DualStreamInteractiveMambaUNet,
@@ -132,6 +134,45 @@ def build_classifier(config, device="cuda", seed=None) -> VSSM:
     CUDA device without CUDA raises."""
     return _build(VSSM, classifier_kwargs(config), config.SEED if seed is None else seed,
                   device)
+
+
+def language_model_kwargs(config) -> Dict[str, Any]:
+    """Constructor arguments of ``JambaLM`` named by a configuration of
+    MODEL.TYPE "jamba": the MODEL.JAMBA keys, which are the published
+    config.json's, and the compute dtype. The port builds tied embeddings
+    only; untied ones raise."""
+    if config.MODEL.TYPE != "jamba":
+        raise ValueError(f"not a language model configuration: MODEL.TYPE {config.MODEL.TYPE!r}")
+    j = config.MODEL.JAMBA
+    if not j.TIE_WORD_EMBEDDINGS:
+        raise ValueError("the port builds Jamba with tied embeddings only")
+    return dict(
+        vocab_size=j.VOCAB_SIZE, hidden_size=j.HIDDEN_SIZE, num_hidden_layers=j.NUM_HIDDEN_LAYERS,
+        num_attention_heads=j.NUM_ATTENTION_HEADS, num_key_value_heads=j.NUM_KEY_VALUE_HEADS,
+        intermediate_size=j.INTERMEDIATE_SIZE, attn_layer_period=j.ATTN_LAYER_PERIOD,
+        attn_layer_offset=j.ATTN_LAYER_OFFSET, mamba_d_state=j.MAMBA_D_STATE,
+        mamba_d_conv=j.MAMBA_D_CONV, mamba_expand=j.MAMBA_EXPAND, mamba_dt_rank=j.MAMBA_DT_RANK,
+        mamba_conv_bias=bool(j.MAMBA_CONV_BIAS), mamba_proj_bias=bool(j.MAMBA_PROJ_BIAS),
+        rms_norm_eps=j.RMS_NORM_EPS,
+        compute_dtype=_DTYPES[config.DTYPE.COMPUTE] if config.AMP_ENABLE else torch.float32,
+    )
+
+
+def build_language_model(config, device="cuda", seed=None) -> JambaLM:
+    """The Jamba language model of ``config`` (MODEL.TYPE "jamba") in eval
+    mode on ``device``, built on the meta device, initialised on ``device``
+    from a generator seeded with ``seed`` (default ``config.SEED``; 3 G
+    parameters at the published sizes, which the CPU would take minutes to
+    draw), its matrices made in DTYPE.PARAMS and ``A_log``, ``D`` and Δ's
+    bias in fp32. ``device`` defaults to the card; a CUDA device without CUDA
+    raises."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = JambaLM(**language_model_kwargs(config)).cast_params(_DTYPES[config.DTYPE.PARAMS])
+    model = model.to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(config.SEED if seed is None else seed))
+    init_parameters(model, gen)
+    return model.eval()
 
 
 def _build(cls: type, kwargs: Dict[str, Any], seed: int, device) -> torch.nn.Module:
